@@ -1,10 +1,11 @@
-"""bitnuc_tpu — a TPU-native nucleotide-packing and k-mer engine.
+"""bitnuc_tpu — a batched nucleotide-packing and k-mer engine on JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
-reference bitnuc crate (2-bit nucleotide codec, packed-domain ops) re-designed
-batch-first for TPU: thousands of reads per jitted call, uint32 device lanes
-(bit-exact with the reference's u64 layout via pair view), Pallas kernels on
-the throughput paths, and jax.sharding collectives for multi-chip scale.
+A from-scratch JAX/XLA framework with the capabilities of the reference
+bitnuc crate (2-bit nucleotide codec, packed-domain ops) re-designed
+batch-first for an accelerator: thousands of reads per jitted call, uint32
+device lanes (bit-exact with the reference's u64 layout via pair view), a
+Triton kernel for batched Hamming search on the GPU, and jax.sharding
+collectives for multi-device scale.
 
 API tiers (mirroring the reference's layering, src/lib.rs:210-220):
   * host functional API: as_2bit, from_2bit, encode, decode, hdist,

@@ -46,7 +46,7 @@ def _member(sorted_keys: np.ndarray, q: np.ndarray) -> Tuple[np.ndarray, np.ndar
     q is itself SORTED at the only call site (the graph build's successor
     candidates suf | b<<2(k-1) preserve key order), so the native tier
     replaces the n binary searches (~22 random cache misses each — the
-    measured joins wall, probe_assemble) with one linear merge
+    measured joins wall on the host) with one linear merge
     (bn_merge_join); numpy searchsorted is the fallback."""
     from . import native
 
@@ -78,8 +78,8 @@ def _wyllie_rank(prev: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         # threaded packed-gather doubling (bn_list_rank): the ranking is
         # memory-LATENCY-bound (two random gathers per node per round);
         # packing (rank, jump) into one u64 halves the gathers and the
-        # threads overlap misses across cores (probe_assemble: the wyllie
-        # stage was the single largest graph-build cost)
+        # threads overlap misses across cores (the wyllie stage was the
+        # single largest graph-build cost on the host)
         lr = native.list_rank(prev)
         if lr is not None:
             return lr
@@ -127,7 +127,7 @@ class _Graph:
             # one native pass builds the whole edge structure (merge joins
             # + degrees + nxt/prev) — the numpy version's per-base
             # temporaries and fancy-index post stage were the measured
-            # graph-build wall (probe_assemble); bit-matching semantics
+            # graph-build wall on the host; bit-matching semantics
             ge = native.graph_edges(keys, k)
             if ge is not None:
                 (self.succ_ok, self.succ_idx, self.outdeg, self.indeg,
@@ -237,10 +237,8 @@ def unitigs_from_keys(
     # the rank-0 node contributes its full k bases, every later node its
     # last base at position k - 1 + rank. No node ORDERING is needed at
     # all — every node's output position is computable directly from
-    # (start, rank), so the round-4 radix argsort of packed (start, rank)
-    # keys (itself the replacement for an even slower np.lexsort) and its
-    # three 4.2M-row gathers vanish into one bincount + one scatter
-    # (round 5: emit 1.6 s -> ~0.3 s at the 2MB-genome bench shape).
+    # (start, rank), so a radix argsort of packed (start, rank) keys and
+    # its three gathers vanish into one bincount + one scatter.
     # Chains are identified and ORDERED by their start-node id (ascending
     # — the same order the sorted formulation produced), so the output is
     # bit-identical.
@@ -362,8 +360,8 @@ def _rc_keys(keys: np.ndarray, k: int) -> np.ndarray:
 
 def _argsort_u64(keys: np.ndarray) -> np.ndarray:
     """Stable u64 argsort: native LSD radix when built (the strand-union
-    and unitig-emit orderings were the assembler's measured sort walls,
-    probe_assemble), numpy stable sort otherwise."""
+    and unitig-emit orderings were the assembler's measured host sort
+    walls), numpy stable sort otherwise."""
     from . import native
 
     if native.available():
@@ -378,8 +376,7 @@ def _expand_both_strands(keys: np.ndarray, counts: np.ndarray, k: int):
     complements, carrying each key's count to its rc twin.
 
     `keys` is sorted (the spectrum contract), so only the rc HALF needs
-    the radix sort; the union is a searchsorted merge (round 5: 0.88 ->
-    ~0.45 s of the 2MB-genome assembly's prepare stage). Duplicates
+    the radix sort; the union is a searchsorted merge. Duplicates
     between the halves arise from palindromes (even k) or from a
     NON-canonical input that already contains both strands of some k-mer
     (legal: assemble_keys takes any sorted unique set) — one cheap
@@ -387,7 +384,7 @@ def _expand_both_strands(keys: np.ndarray, counts: np.ndarray, k: int):
     so the canonical odd-k common case pays ~nothing. On a collision the
     key keeps its OWN input count, not its rc-twin's (the A copy merges
     first — the same semantics the original stable concat+sort had;
-    pinned by test + the round-5 soak oracle)."""
+    pinned by test + the soak oracle, scripts/soak.py)."""
     n = keys.shape[0]
     if n == 0:
         return keys.astype(np.uint64), counts
@@ -674,12 +671,8 @@ def assemble_reads(
                 bn_spectrum, numpy twin fallback) — D2H is the packed
                 READS (bases/4 bytes == coverage/48 of the spectrum) or
                 nothing at all when the reads are host-resident;
-      'auto'    'host' on a TPU backend, 'device' elsewhere — on this
-                project's measured hardware the device->host path runs at
-                ~12 MB/s (docs/DESIGN.md 15b/15c) and the host spectrum
-                beats any on-device re-encoding (delta coding is
-                entropy-limited to ~2.3x at random-genome density);
-                a local-PCIe deployment flips this with engine='device'.
+      'auto'    'device' (on every platform; measuring 'host' against
+                'device' on the GPU is open, ROADMAP 3.4).
     mesh forces the sharded device path (pod-scale read sets).
     """
     from .ops import kmer as kmer_ops
@@ -687,9 +680,7 @@ def assemble_reads(
     if engine not in ("auto", "device", "host"):
         raise ValueError(f"engine must be auto|device|host, got {engine!r}")
     if mesh is None and engine != "device":
-        import jax
-
-        if engine == "host" or jax.default_backend() == "tpu":
+        if engine == "host":
             from . import native
 
             bv = None if base_valid is None else np.asarray(base_valid)

@@ -1441,12 +1441,11 @@ def cmd_qc(args) -> int:
 def cmd_info(args) -> int:
     import jax
 
-    from . import config, native
+    from . import native
 
     print(
         json.dumps(
             {
-                "backend": config.get_backend(),
                 "jax_platform": jax.devices()[0].platform,
                 "devices": len(jax.devices()),
                 "native": native.available(),
@@ -1480,7 +1479,7 @@ def _add_count_args(p):
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        prog="bitnuc_tpu", description="TPU-native 2-bit nucleotide toolkit"
+        prog="bitnuc_tpu", description="2-bit nucleotide toolkit on JAX"
     )
     sub = ap.add_subparsers(dest="command", required=True)
 
@@ -1839,13 +1838,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out", default=None, help="write here instead of stdout")
     p.set_defaults(fn=cmd_qc)
 
-    p = sub.add_parser("info", help="backend/device/native status as JSON")
+    p = sub.add_parser("info", help="device/native status as JSON")
     p.set_defaults(fn=cmd_info)
     return ap
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from . import config
+
+    config.enable_compilation_cache()
     try:
         rc = args.fn(args)
         # flush INSIDE the handler's scope: on block-buffered piped stdout

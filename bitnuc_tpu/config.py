@@ -1,86 +1,29 @@
-"""Backend configuration.
+"""Process-wide configuration: the persistent compilation cache and the
+host CPU tag that keys native builds.
 
-The reference selects SIMD vs scalar back-ends at runtime per call
-(src/utils/packing/mod.rs:81-110) and offers a `nosimd` compile-time escape
-hatch (Cargo.toml:13-14). The TPU analog is a trace-time choice between the
-pure-XLA lowering (always correct, runs on any JAX backend) and Pallas kernels
-(the throughput path on real TPUs). Both produce bit-identical outputs;
-parity is enforced directly by tests rather than by a CI matrix.
+Every op has one device path, chosen from what the code can observe
+(platform, k, shapes); there is no user-set backend switch.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 
-_VALID = ("auto", "xla", "pallas")
-_backend = os.environ.get("BITNUC_BACKEND", "auto")
-if _backend not in _VALID:
-    raise ValueError(f"BITNUC_BACKEND must be one of {_VALID}, got {_backend!r}")
-
-
-def get_backend() -> str:
-    return _backend
-
-
-def set_backend(name: str) -> None:
-    global _backend
-    if name not in _VALID:
-        raise ValueError(f"backend must be one of {_VALID}, got {name!r}")
-    _backend = name
-
-
-@contextlib.contextmanager
-def backend(name: str):
-    """Temporarily select a backend: with bitnuc_tpu.config.backend('xla'): ..."""
-    old = get_backend()
-    set_backend(name)
-    try:
-        yield
-    finally:
-        set_backend(old)
-
-
-def use_pallas() -> bool:
-    """True when kernels should lower via Pallas for the current backend.
-
-    'auto' resolves to Pallas on TPU, XLA elsewhere (mirrors the reference's
-    runtime CPU-feature dispatch, src/utils/packing/mod.rs:83-93).
-    """
-    b = get_backend()
-    if b == "pallas":
-        return True
-    if b == "xla":
-        return False
-    import jax
-
-    try:
-        # only TPU has the Mosaic kernels; any other backend (CPU, GPU)
-        # takes the always-correct XLA lowering under 'auto'
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
-
-
-def pallas_interpret() -> bool:
-    """True when Pallas kernels must run in interpret mode (off-TPU)."""
-    import jax
-
-    try:
-        return jax.default_backend() != "tpu"
-    except Exception:
-        return True
+# <repo>/.jax_cache: fixed, so a second run of the same checkout finds the
+# executables the first one stored (the path is part of the cache key)
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
 
 
 def host_cpu_tag() -> str:
-    """Fingerprint of the host CPU feature set, for compile-cache dirs.
+    """Fingerprint of the host CPU feature set.
 
-    This container migrates across physical hosts, and XLA:CPU's AOT
-    loader accepts cached executables compiled on a DIFFERENT machine with
-    only a warning — then computes wrong results (observed: scatter-add
-    double counting, flaky as cache hits raced recompiles). Keying cache
-    directories by the CPU flags makes a migration start a fresh cache
-    instead of loading poisoned binaries.
+    native/Makefile stamps it beside the -march=native build of the host
+    library; the loader refuses a library built for another CPU (a binary
+    built for a richer host SIGILLs instead of erroring). Tests also key
+    their XLA:CPU compile cache by it: XLA:CPU loads AOT executables built
+    on another machine with only a warning and then computes wrong results.
     """
     import hashlib
 
@@ -96,20 +39,23 @@ def host_cpu_tag() -> str:
     return hashlib.sha1(platform.processor().encode()).hexdigest()[:12]
 
 
-def enable_compilation_cache(path: str = "/tmp/bitnuc_jax_cache") -> None:
-    """Turn on JAX's persistent compilation cache (idempotent).
+def enable_compilation_cache() -> str:
+    """Turn on JAX's persistent compilation cache (idempotent); returns the
+    directory in use.
 
-    Compiles in this environment go through a remote service that is slow
-    and occasionally hangs; caching every executable makes repeat runs
-    (benchmarks, driver entry checks) independent of it. The directory is
-    suffixed with host_cpu_tag() so host migrations can't serve stale
-    XLA:CPU AOT binaries built for another machine's features.
+    A directory already given to JAX wins: JAX_COMPILATION_CACHE_DIR (which
+    JAX reads itself) or an earlier jax.config update (the test suite's).
+    Otherwise the cache goes to DEFAULT_CACHE_DIR inside the checkout.
+    Every executable is cached, however small or quick to compile.
     """
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", f"{path}_{host_cpu_tag()}")
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    except Exception:
-        pass
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR") or (
+        jax.config.jax_compilation_cache_dir
+    )
+    if not path:
+        path = DEFAULT_CACHE_DIR
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    return path

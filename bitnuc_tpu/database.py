@@ -1,17 +1,14 @@
 """PackedDB — a fixed-length packed-sequence database in scan layout.
 
 The hdist database scan (BASELINE.json config 5) is the framework's search
-workload: one query against up to 1e8 packed entries. Its optimal device
-layout is WORD-MAJOR [W, D] (structure-of-arrays): the huge entry axis rides
-the 128 VPU lanes and the word axis sits on sublanes where the reduction is
-free — the row-major PackedReads layout would waste 3/4 of every 128-lane
-tile at typical W. PackedDB stores that layout once, so repeated queries
-never re-transpose.
+workload: queries against up to 1e8 packed entries. The database is stored
+WORD-MAJOR [W, D] (structure-of-arrays), so a scan reads each word row
+contiguously along the entry axis; PackedDB stores that layout once, so
+repeated queries never re-transpose it.
 
-Scan dispatch mirrors the codec backends: the Pallas kernel
-(ops/pallas/hamming.py) fuses the XOR/collapse/popcount/word-sum chain in
-VMEM on TPU; elsewhere the barriered XLA path runs on the transposed-back
-view. Both are bit-exact with the reference hdist semantics
+Queries go through ops.hamming.hdist_many_to_many_wm (on a GPU the Triton
+batch kernel, ops/hamming_triton.py, single queries at Q=1; elsewhere the
+XLA scan). Both are bit-exact with the reference hdist semantics
 (src/utils/functions/hamming/multi.rs:122-160).
 """
 
@@ -65,7 +62,7 @@ class PackedDB:
         index semantics). With the native library the build is HOST-side end
         to end — native parse + multithreaded host pack into word-major
         slabs, ONE device upload at the end (2 bits/base over the link; a
-        1e8 x 512-base database uploads 3.2 GB once, vs 51 GB as ASCII or
+        1e8 x 512-base database uploads 12.8 GB once, vs 51 GB as ASCII or
         per-batch round trips). Host peak is ~2x the packed size (slabs +
         final concatenate). Falls back to the device loader when the
         native library is absent.
@@ -149,20 +146,9 @@ class PackedDB:
 
     def distances(self, query: jax.Array) -> jax.Array:
         """Per-entry Hamming distances [D] for one packed query [W]."""
-        from . import config
         from .ops import hamming
-        from .ops.pallas import hamming as ph
 
-        if config.use_pallas():
-            return ph.hdist_scan_pallas(
-                query,
-                self.words_wm,
-                self.n_bases,
-                interpret=config.pallas_interpret(),
-            )
-        return hamming.hdist_one_to_many(
-            query, jnp.transpose(self.words_wm), self.n_bases
-        )
+        return hamming.hdist_one_to_many_wm(query, self.words_wm, self.n_bases)
 
     def _sharded_wm(self, mesh, axis: str):
         """words_wm zero-padded to a device multiple on D and sharded
@@ -201,35 +187,11 @@ class PackedDB:
         return hamming.topk_smallest(self.distances(query), k)
 
     def distances_batch(self, queries: jax.Array) -> jax.Array:
-        """All-pairs distances [Q, D] for a packed query batch [Q, W].
-
-        On TPU the batched Pallas kernel reads each db tile once per TILE_Q
-        queries (ops/pallas/hamming.py) — Q-fold HBM traffic reduction over
-        per-query scans."""
-        from . import config
+        """All-pairs distances [Q, D] for a packed query batch [Q, W]."""
         from .ops import hamming
-        from .ops.pallas import hamming as ph
 
-        if config.use_pallas():
-            Q, W = queries.shape
-            # MXU bitplane kernel wins once Q amortizes the per-tile plane
-            # expansion (round 5: neutral at Q=64, +17% at Q=256); plane
-            # rows 48W must fit VMEM next to the tile
-            if Q >= 128 and 48 * W <= 4096:
-                return ph.hdist_scan_batch_mxu(
-                    queries,
-                    self.words_wm,
-                    self.n_bases,
-                    interpret=config.pallas_interpret(),
-                )
-            return ph.hdist_scan_batch_pallas(
-                queries,
-                self.words_wm,
-                self.n_bases,
-                interpret=config.pallas_interpret(),
-            )
-        return hamming.hdist_many_to_many(
-            queries, jnp.transpose(self.words_wm), self.n_bases
+        return hamming.hdist_many_to_many_wm(
+            queries, self.words_wm, self.n_bases
         )
 
     def search_batch(
@@ -246,9 +208,8 @@ class PackedDB:
             return psearch.hdist_search_batch_db_sharded(
                 queries, wm, self.n_bases, min(k, D), mesh, axis, d_valid=D
             )
-        # blocked one-pass top-k when (n_bases, D) pack into a u32 key —
-        # the iterative per-row extractor was k full passes over [Q, D]
-        # (21.7 of 22.7 ms at [64, 1M], round-5 probe)
+        # blocked one-pass top-k when (n_bases, D) pack into a u32 key;
+        # the iterative per-row extractor makes k full passes over [Q, D]
         return hamming.topk_batch_dispatch(
             self.distances_batch(queries), k, self.n_bases
         )

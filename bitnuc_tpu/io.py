@@ -232,8 +232,8 @@ def iter_fastq_batches(
 
     use_native = native.available() if staged is None else bool(staged)
     if use_native and not native.available():
-        # a forced backend must fail loudly, not silently benchmark the
-        # wrong path (same contract as config backend='pallas')
+        # a forced path must fail loudly, not silently benchmark the
+        # wrong one
         raise RuntimeError(
             "staged=True but the native library is not built "
             "(make -C bitnuc_tpu/native); use staged=None for auto-fallback"

@@ -1,4 +1,4 @@
-"""Batched pairwise alignment on TPU: edit distance, global / fitting
+"""Batched pairwise alignment on device: edit distance, global / fitting
 (semi-global) distance, and affine-gap Smith-Waterman scores.
 
 The reference library's only sequence-comparison primitive is Hamming
@@ -8,7 +8,7 @@ nucleotide toolkit also needs alignment, where insertions/deletions shift
 the frame. None of the classic CPU formulations survive contact with XLA:
 row-by-row DP is a data-dependent double loop, WFA's frontier is
 dynamically sized, and Myers' bit-parallel automaton needs per-row
-carry propagation. The TPU-native shape is the ANTI-DIAGONAL WAVEFRONT:
+carry propagation. The batched shape is the ANTI-DIAGONAL WAVEFRONT:
 
 - cells on one anti-diagonal d = i + j have no data dependence on each
   other, so each scan step updates a whole [batch, N+1] vector of lanes;
@@ -16,7 +16,7 @@ carry propagation. The TPU-native shape is the ANTI-DIAGONAL WAVEFRONT:
   shapes, no data-dependent control flow, one fused elementwise kernel
   per step;
 - the per-step substitution costs need a[d-1-j] vs b[j-1] for every j —
-  a diagonal GATHER of `a`, which serializes on TPU (docs/DESIGN.md §2).
+  a diagonal GATHER of `a` (docs/DESIGN.md §8).
   Reversing `a` ONCE turns every diagonal of the equality matrix into a
   contiguous slice: a[d-1-j] == reversed(a)[La-d+j], so each step does
   one `dynamic_slice` instead of a gather;
@@ -151,8 +151,8 @@ def _distance_wavefront(
         return (diag, prev, ans, fit, endj), None
 
     # unroll=8: each diagonal step touches only [B, N+1] lanes, so the
-    # scan is loop-overhead-bound; unrolling measured -18% on the fit
-    # wall (benchmarks/probe_fit_unroll.py; flat beyond 8)
+    # scan is loop-overhead-bound and unrolling amortizes the per-step
+    # overhead (whether 8 is best on the GPU is ROADMAP 1.6)
     (prev, prev2, ans, fit, endj), _ = jax.lax.scan(
         step,
         (prev, prev2, ans0, fit0, endj0),
@@ -294,7 +294,7 @@ def fit_distance_span(
         step,
         (prev, prev2, s_prev, s_prev2, fit0, endj0, startj0),
         jnp.arange(1, M + N + 1, dtype=jnp.int32),
-        unroll=8,  # loop-overhead-bound (probe_fit_unroll: -18%)
+        unroll=8,  # loop-overhead-bound
     )
     startj = jnp.where(fit < _BIG, jnp.minimum(startj, endj), 0)
     return fit, startj, endj
@@ -334,6 +334,16 @@ def _band_geometry(off_lo: int, off_hi: int, N: int):
         return jnp.clip((d + off_lo + 1) // 2, 0, top)
 
     return K, base
+
+
+def _band_k8(off_lo: int, off_hi: int, sa: int = 8) -> Tuple[int, int]:
+    """(K, effective off_hi): widen the band so its lane count K is a
+    multiple of sa (the widened band is a superset — never less exact).
+    The mapper's banded fit runs at this band, so its cost/start/end are
+    pinned to it."""
+    K, _ = _band_geometry(off_lo, off_hi, 1 << 30)
+    K8 = -(-K // sa) * sa
+    return K8, off_lo + 2 * (K8 - 2)
 
 
 def _band_shift(x: jax.Array, delta, lag: int, K: int, fill) -> jax.Array:
@@ -462,7 +472,7 @@ def _wavefront_tb_codes(
     plane emitted per diagonal (bit0 diag ties, bit1 up ties, bit2 left
     ties, bit3 diag-is-match); the traceback is a second lax.scan of M+N
     steps whose only data-dependent memory access is ONE take_along_axis
-    row gather per step (gathers serialize on TPU, but the traceback
+    row gather per step (the traceback
     touches M+N cells per pair vs the forward pass's (M+N)(N+1) — it is
     never the dominant cost). Tie policy: CONTINUE the current op when it
     ties (gap runs coalesce — unit gap costs otherwise legally split a
@@ -906,6 +916,6 @@ def sw_score(
         step,
         (h_prev, h_prev2, e_prev, f_prev, best, end_i, end_j),
         jnp.arange(1, M + N + 1, dtype=jnp.int32),
-        unroll=8,  # loop-overhead-bound (probe_fit_unroll: -18%)
+        unroll=8,  # loop-overhead-bound
     )
     return best, end_i, end_j

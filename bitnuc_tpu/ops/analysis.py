@@ -71,8 +71,7 @@ def windowed_gc(
     Packed-domain formulation: the GC bit of each 2-bit code is lo XOR hi
     (C=01, G=10 vs A=00, T=11), expanded 16 bases/word, prefix-summed once,
     and window sums read as two strided slices of the cumsum — no gather
-    (strided slice lowers natively on TPU; gathers serialize,
-    docs/DESIGN.md). Extends the reference's whole-sequence gc_content
+    (docs/DESIGN.md). Extends the reference's whole-sequence gc_content
     (src/utils/analysis.rs:8-16) to positional tracks.
     """
     step = step or window

@@ -1,14 +1,14 @@
-"""Collinear anchor chaining (the minimap2 chaining DP) on TPU.
+"""Collinear anchor chaining (the minimap2 chaining DP) on device.
 
 The short-read mapper's diagonal vote (mapper.py step 4) assumes one
 near-constant diagonal per read — right for <=300bp reads, wrong for
 long reads whose indels drift the diagonal. The standard fix is chaining:
 given seed anchors (rpos, qpos), find the highest-scoring strictly
 increasing chain under a gap penalty. This module is that DP as a
-TPU-native op — the long-read building block on top of the existing
+batched device op — the long-read building block on top of the existing
 seed machinery (`mapper._seed_candidates` supplies anchors).
 
-TPU formulation: minimap2's heuristic bounds the predecessor search to
+Formulation: minimap2's heuristic bounds the predecessor search to
 the last `lookback` anchors (by reference order), which turns the
 quadratic DP into a `lax.scan` over anchors carrying a [B, lookback]
 ring buffer of (score, rpos, qpos, chain-start) — every step is one
@@ -143,7 +143,7 @@ def chain_anchors(
         return (ring_f, ring_r, ring_q, ring_sr, ring_sq, best), None
 
     # unroll: each anchor step touches [B, lookback] — loop-overhead-
-    # bound like the alignment wavefront (probe_fit_unroll)
+    # bound like the alignment wavefront
     (_, _, _, _, _, best), _ = jax.lax.scan(
         step,
         (ring_f, ring_r, ring_q, ring_sr, ring_sq, best),

@@ -1,6 +1,6 @@
 """Batched encode/decode between ASCII nucleotides and packed 2-bit words.
 
-This is the TPU-native analog of the reference's codec tier
+This is the batched analog of the reference's codec tier
 (encode: src/utils/mod.rs:22, decode: src/utils/mod.rs:60, single-word
 as_2bit/from_2bit: src/utils/packing/mod.rs:81 / src/utils/unpacking/mod.rs:119).
 Where the reference packs one sequence per call with the caller looping, we
@@ -24,7 +24,6 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 
-from .. import config
 from ..utils import bitops
 
 
@@ -68,15 +67,10 @@ def encode_reads_xla(
       first_bad: [...] int32 index of the first invalid base, or -1.
 
     Formulation: 16 strided byte-lane slices a[..., j::16], each SWAR-coded
-    and OR-folded into its 2-bit position — measured 6% faster than the
-    reshape [.., W, 16] + shift/sum pack at 512 MiB calls on v5e
-    (benchmarks/probe_encode10: 24.0 vs 22.7 Gbases/s at 80 GB/s
-    calibration; the reshape+reduce lowering, not the byte traffic, was the
-    gap to the measured floor). first_bad via ONE single-value max reduce
-    per lane-tree: argmax/any are variadic reduces that serialize their
-    fused operand chain on TPU; encoding the leftmost invalid position as
-    max(Lp - pos) keeps validation ~free (probe_encode8; optimization_
-    barrier variants all slower — docs/DESIGN.md §5).
+    and OR-folded into its 2-bit position. first_bad via ONE single-value
+    max reduce per lane-tree instead of argmax/any (variadic reduces):
+    encoding the leftmost invalid position as max(Lp - pos) keeps
+    validation nearly free (docs/DESIGN.md §5).
     """
     L = ascii_u8.shape[-1]
     W = bitops.n_words_for(L) if n_words is None else int(n_words)
@@ -96,7 +90,7 @@ def encode_reads_xla(
         invalid = ~bitops.ascii_is_valid(s) & in_range
         bad_enc.append(jnp.where(invalid, Lp - pos, 0))
     # out-of-range garbage codes cleared by ONE final word mask instead of
-    # 16 per-lane wheres (probe_encode11: 25.0 vs 24.0 Gbases/s same-run)
+    # 16 per-lane wheres
     words = _tree_fold(shifted, jnp.bitwise_or) & bitops.word_valid_mask(
         W, lengths
     )
@@ -135,28 +129,8 @@ def encode_reads(
     lengths: jax.Array,
     n_words: Optional[int] = None,
 ) -> Tuple[jax.Array, jax.Array]:
-    """Backend-dispatching batched encode.
-
-    Measured on v5e, the fused XLA lowering beats the Pallas twin for this
-    memory-bound elementwise op (476 vs 345 Gbase/s — XLA's fusion already
-    rides the HBM roofline), so 'auto' resolves to XLA here; backend='pallas'
-    forces the kernel (both are bit-exact, parity-tested in
-    tests/test_pallas.py).
-    """
-    if config.get_backend() == "pallas":
-        from .pallas import pack as pallas_pack
-
-        # interpret mode off-TPU, so the kernel backend runs anywhere (the
-        # analog of the reference's scalar fallback on non-SIMD machines).
-        # The kernel is written for [B, L]; other ranks flatten their leading
-        # dims through it (no silent XLA fallback — dispatch contract).
-        lead = ascii_u8.shape[:-1]
-        flat = ascii_u8.reshape((-1, ascii_u8.shape[-1]))
-        lens_flat = jnp.asarray(lengths, jnp.int32).reshape(-1)
-        words, first_bad = pallas_pack.encode_reads_pallas(
-            flat, lens_flat, n_words, interpret=config.pallas_interpret()
-        )
-        return words.reshape(lead + words.shape[-1:]), first_bad.reshape(lead)
+    """Batched encode: the fused XLA lowering (encode_reads_xla). This
+    elementwise, memory-bound op needs no hand-written kernel."""
     return encode_reads_xla(ascii_u8, lengths, n_words)
 
 
@@ -165,17 +139,7 @@ def decode_reads(
     lengths: jax.Array,
     max_len: Optional[int] = None,
 ) -> jax.Array:
-    """Backend-dispatching batched decode (see encode_reads for the policy)."""
-    if config.get_backend() == "pallas":
-        from .pallas import unpack as pallas_unpack
-
-        lead = words.shape[:-1]
-        flat = words.reshape((-1, words.shape[-1]))
-        lens_flat = jnp.asarray(lengths, jnp.int32).reshape(-1)
-        out = pallas_unpack.decode_reads_pallas(
-            flat, lens_flat, max_len, interpret=config.pallas_interpret()
-        )
-        return out.reshape(lead + out.shape[-1:])
+    """Batched decode: the fused XLA lowering (decode_reads_xla)."""
     return decode_reads_xla(words, lengths, max_len)
 
 

@@ -5,13 +5,12 @@ src/lib.rs): PCR/optical duplicate marking is the standard first pass of
 any read-processing pipeline, and the packed 2-bit domain makes it a pure
 word-compare problem — no decode needed.
 
-TPU formulation: a multi-key `lax.sort` over the word columns groups
+Formulation: a multi-key `lax.sort` over the word columns groups
 identical reads into adjacent runs; run starts and lengths come from
 adjacent-compare + the reverse-cummin run-length primitive
-(ops.kmer._run_start_counts, measured ~10x faster than scatter schemes on
-TPU — docs/DESIGN.md §2), and results return to original read order with a
-second sort keyed on the carried iota instead of a gather/scatter (both
-serialize on TPU). Within a duplicate group the stable sort keeps original
+(ops.kmer._run_start_counts, scatter-free — docs/DESIGN.md §4), and results return to original read order with a
+second sort keyed on the carried iota instead of a gather/scatter.
+Within a duplicate group the stable sort keeps original
 order, so the kept (count-carrying) occurrence is always the FIRST
 appearance in the batch.
 

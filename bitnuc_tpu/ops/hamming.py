@@ -1,22 +1,18 @@
 """Per-base Hamming distance on packed words.
 
-TPU-native analog of the reference hdist family
+Analog of the reference hdist family
 (src/utils/functions/hamming/scalar.rs:11-48, multi.rs:122-160): XOR the
 packed streams, collapse each 2-bit group to one bit (lower | upper>>1,
 scalar.rs:40-44), mask to the valid length, popcount, reduce over words.
 Batched over reads and database entries — the reference processes one pair
 per call.
 
-Two v5e compiler findings shape the formulation (measured on chip):
-
-  * XLA serializes when the xor/shift/popcount chain is FUSED into a reduce
-    or dot operand (25 ms for a 1M x 32 scan). An optimization_barrier
-    between the popcount and the word-axis reduction keeps both sides on the
-    fast vector path (59 us — ~430x).
-  * Variadic reduces (argmin, lax.top_k) also serialize (26 ms over 1M).
-    Exact top-k is instead extracted iteratively with single-value reduces:
-    k rounds of (min, index-of-min, mask-out) inside one fori_loop (79 us).
-    Ties resolve to the lowest index, deterministically.
+The XLA formulation keeps an optimization_barrier between the popcount and
+the word-axis reduction, and extracts exact top-k iteratively with
+single-value reduces (k rounds of min, index-of-min, mask-out; ties resolve
+to the lowest index, deterministically). Both were chosen for a compiler
+that serialized fused reduces and variadic reduces; whether the GPU still
+needs either is an open measurement (ROADMAP 3.5).
 """
 
 from __future__ import annotations
@@ -36,13 +32,18 @@ def _popcount_diff(words1: jax.Array, words2: jax.Array, mask: jax.Array) -> jax
 
 
 def _sum_words(p: jax.Array) -> jax.Array:
-    """Sum over the trailing word axis via an MXU dot (values <= 16 per word,
-    exact in f32 for any W < 2^20)."""
+    """Sum over the trailing word axis as a dot with a ones vector.
+
+    Exact: every operand is an integer <= 16 and every partial sum is an
+    integer <= 16 W, which f32 holds exactly for W < 2^20 (2^24 / 16).
+    TF32 operands would also be exact (11-bit significands hold integers up
+    to 2048), but precision=HIGHEST keeps the claim off TF32 entirely."""
     W = p.shape[-1]
     s = jax.lax.dot_general(
         p.astype(jnp.float32),
         jnp.ones((W,), jnp.float32),
         dimension_numbers=(((p.ndim - 1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,
     )
     return s.astype(jnp.int32)
@@ -75,8 +76,7 @@ def topk_smallest(values: jax.Array, k: int):
     """Exact k smallest of a 1-D int array with their indices, ascending;
     ties broken by lowest index. If k > n, the tail is sentinel-filled
     (distance 2^30, index -1) rather than phantom zeros. Uses only
-    single-value reduces (lax.top_k serializes on TPU — see module
-    docstring)."""
+    single-value reduces (see module docstring)."""
     n = values.shape[0]
     big = jnp.int32(2**30)
     idx_range = jnp.arange(n, dtype=jnp.int32)
@@ -109,9 +109,8 @@ def topk_smallest_batch(values: jax.Array, k: int, chunk: int = 512):
     signed scores must use the iterative topk_smallest (distances are
     >= 0 by construction everywhere this is dispatched).
 
-    Round-5 finding (probe split, 12 GB/s window): the vmapped iterative
-    top-k was 21.7 of search_batch's 22.7 ms at [64, 1M] — k sequential
-    masked-min+scatter passes over the [Q, D] matrix. Here (value, index)
+    The vmapped iterative top-k makes k sequential masked-min+scatter
+    passes over the [Q, D] matrix. Here (value, index)
     pack into one u32 key (value in the high bits, so a u32 min IS the
     (value, lowest-index) lexicographic winner); stage 1 reduces each
     C-column chunk to its packed min in one pass, stage 2 extracts the
@@ -202,9 +201,9 @@ def hdist_topk_batch(queries: jax.Array, database: jax.Array, n_bases, k: int):
     merge lives in parallel/search.py::hdist_search_batch_sharded.
 
     NOT itself jitted: the blocked-top-k dispatch needs a CONCRETE
-    n_bases to check the u32 packing bound (round-5 review: a jit here
-    traced n_bases and silently locked every caller onto the k-pass
-    iterative path). The pieces it composes are jitted.
+    n_bases to check the u32 packing bound (a jit here would trace n_bases
+    and lock every caller onto the k-pass iterative path). The pieces it
+    composes are jitted.
     """
     d = hdist_many_to_many(queries, database, n_bases)
     return topk_batch_dispatch(d, k, n_bases)
@@ -243,3 +242,30 @@ def hdist_many_to_many(
     return jax.lax.map(
         lambda q: hdist_one_to_many(q, database, n_bases), queries
     )
+
+
+def hdist_one_to_many_wm(
+    query: jax.Array, db_word_major: jax.Array, n_bases: int
+) -> jax.Array:
+    """Distances [D] from one packed query [W] to a WORD-MAJOR database
+    [W, D]: the batch scan below at Q=1 (on a GPU the Triton kernel, which
+    reads the database once instead of transposing it first)."""
+    return hdist_many_to_many_wm(query[None, :], db_word_major, n_bases)[0]
+
+
+def hdist_many_to_many_wm(
+    queries: jax.Array, db_word_major: jax.Array, n_bases: int
+) -> jax.Array:
+    """All-pairs distance matrix against a WORD-MAJOR database:
+    [Q, W] x [W, D] -> [Q, D] int32. n_bases must be concrete.
+
+    On a GPU this is the Triton batch kernel (ops/hamming_triton.py), which
+    reads each database tile once per block of queries; elsewhere the XLA
+    scan above on the row-major view, one database pass per query."""
+    if jax.default_backend() == "gpu":
+        from . import hamming_triton
+
+        return hamming_triton.hdist_scan_batch(
+            queries, db_word_major, int(n_bases)
+        )
+    return hdist_many_to_many(queries, jnp.transpose(db_word_major), n_bases)

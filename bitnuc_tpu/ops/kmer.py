@@ -2,7 +2,7 @@
 
 The reference documents k-mer counting as caller-side: re-pack every ASCII
 window with as_2bit and count into a HashMap (README.md:164-180,
-src/lib.rs:160-180) — O(n*k) repacking and a hash table. The TPU-native
+src/lib.rs:160-180) — O(n*k) repacking and a hash table. This
 design extracts every window key from the 2-bit code stream in O(n log k)
 vector ops (position-doubling: key_{2m}[p] = key_m[p] | key_m[p+m] << 2m),
 then replaces the HashMap with either
@@ -149,31 +149,15 @@ def count_kmers_dense(
     return jnp.zeros(4**k, jnp.int32).at[keys].add(wts)
 
 
-MAX_MXU_K = 8  # matmul histogram: FLOPs scale as 4^k * N, wins up to ~k=8
-# the Pallas VMEM histogram extends one k further (1 MB f32 accumulator at
-# k=9; measured 257 vs 131 Mkmers/s scatter same-run — benchmarks/
-# probe_k910.py). k=10 measured NEGATIVE (82 vs 130: 4^10 MXU FLOPs/key
-# outgrow the scatter), so the scatter keeps k >= 10.
-MAX_PALLAS_HIST_K = 9
+MAX_MXU_K = 8  # one-hot matmul histogram: FLOPs scale as 4^k per window
 
 
 def auto_dense_max_k() -> int:
-    """Largest k for which the MANAGED PIPELINE uses the dense engine on
-    the current backend: TPU hands k = 10..MAX_DENSE_K to the sparse runs
-    engine (2.7-4.3x the scatter, probe_k1012), everything else keeps the
-    dense histogram up to MAX_DENSE_K.
-
-    Deliberately ONE LESS aggressive than mode='auto_layout' (which also
-    hands k=9 to runs, 1.2-1.3x the VMEM histogram per call,
-    benchmarks/probe_k9runs.py): the pipeline's sparse accumulator is
-    int32-window-bounded (~2.1e9 windows/job) while k=9's 262k-bin dense
-    histogram folds into an unbounded host int64 array — at genome scale
-    the k=9 capacity matters more than the 1.3x per batch (round-5 review
-    caught the regression of routing it sparse)."""
-    import jax
-
-    if jax.default_backend() == "tpu":
-        return MAX_PALLAS_HIST_K
+    """Largest k for which the MANAGED PIPELINE uses the dense engine:
+    MAX_DENSE_K on every platform. The pipeline's sparse accumulator is
+    int32-window-bounded (~2.1e9 windows/job) while a dense histogram
+    folds into an unbounded host int64 array, so dense is kept wherever
+    it fits."""
     return MAX_DENSE_K
 
 
@@ -185,19 +169,16 @@ def count_kmers_dense_mxu(
     canonical: bool = False,
     base_valid=None,
 ) -> jax.Array:
-    """Dense k-mer histogram as an MXU contraction (scatter-free).
+    """Dense k-mer histogram as a one-hot matrix product (scatter-free).
 
-    XLA's scatter-add serializes on TPU (~60 Mkeys/s measured); the MXU does
-    not. Split each key into hi/lo digits and count every (hi, lo) pair with
+    Split each key into hi/lo digits and count every (hi, lo) pair with
     one matmul over the window axis:
 
         hist2d = onehot(hi)^T @ onehot(lo)        # [n_hi, n_lo], f32 accum
 
-    The one-hots are comparison-generated and fused into the matmul by XLA;
-    f32 accumulation of 0/1 values is exact below 2^24 per bin, and windows
-    are processed in <=2^22-slab chunks so no bin update can lose integer
-    precision. Bin i of the flattened result counts windows whose packed
-    value is i — identical to the README HashMap semantics (README.md:164-180).
+    The one-hots are comparison-generated and fused into the matmul by XLA.
+    Bin i of the flattened result counts windows whose packed value is i —
+    identical to the README HashMap semantics (README.md:164-180).
     """
     assert k <= MAX_MXU_K, f"matmul histogram capped at k={MAX_MXU_K}"
     lo_keys, _, valid = _window_keys(words, lengths, k, canonical, base_valid)
@@ -219,6 +200,9 @@ def count_kmers_dense_mxu(
         w = wts[s : s + CHUNK]
         a = ((h[:, None] == jnp.arange(n_hi, dtype=jnp.int32)[None, :]) & w[:, None])
         b = l[:, None] == jnp.arange(n_lo, dtype=jnp.int32)[None, :]
+        # exact: the bf16 operands are 0/1 (bf16 holds both exactly), each
+        # product is 0 or 1, and every bin's f32 sum is an integer <= CHUNK
+        # = 2^22 < 2^24, below which f32 holds every integer exactly
         part = jax.lax.dot_general(
             a.astype(jnp.bfloat16),
             b.astype(jnp.bfloat16),
@@ -227,45 +211,6 @@ def count_kmers_dense_mxu(
         )
         hist2d = hist2d + part.astype(jnp.int32)
     return hist2d.reshape(-1)
-
-
-@partial(jax.jit, static_argnames=("k", "canonical", "interpret"))
-def count_kmers_dense_pallas(
-    words: jax.Array,
-    lengths: jax.Array,
-    k: int,
-    canonical: bool = False,
-    interpret: bool = False,
-    base_valid=None,
-) -> jax.Array:
-    """Dense histogram via the Pallas MXU kernel (one-hots never leave VMEM;
-    HBM traffic is 4 bytes/window vs ~512 for the XLA matmul lowering).
-    See ops/pallas/histogram.py. k <= MAX_PALLAS_HIST_K (= 9; the fused
-    from-words path additionally needs k <= MAX_MXU_K).
-
-    The fused from-words kernel pads the word axis to its cw-column tiles;
-    on SHORT reads that padding is pure wasted MXU work (probe_pipeline2:
-    22.8 Mkmers/s fused vs 343 keys-path at [16384, 20] — 300bp FASTQ
-    shapes — while at W=1024 the fused path wins), so it only dispatches
-    when the padding overhead stays below 25%."""
-    assert k <= MAX_PALLAS_HIST_K
-    from .pallas import histogram
-
-    W = words.shape[-1]
-    cw = histogram._fused_cw(k) if k <= MAX_MXU_K else 0
-    fused_ok = k <= MAX_MXU_K and (-(-W // cw) * cw) * 4 <= 5 * W
-    if fused_ok and not canonical and base_valid is None and not interpret:
-        # fully fused: window keys generated in VMEM from the packed words
-        # (no XLA key materialization; +6% end-to-end and ~8 B/base less
-        # HBM traffic, docs/DESIGN.md). Compiled mode only: the 16x8
-        # unrolled dot loop is pathologically slow under CPU interpret
-        # emulation (the parity tests exercise it explicitly instead).
-        return histogram.histogram_from_words(words, lengths, k)
-    lo, _, valid = _window_keys(words, lengths, k, canonical, base_valid)
-    keys = jnp.where(valid, lo, jnp.uint32(4**k)).astype(jnp.int32).reshape(-1)
-    return histogram.histogram_from_keys(keys, k, interpret=interpret)
-
-
 
 
 def segment_count(hi_s: jax.Array, lo_s: jax.Array, w_s: jax.Array):
@@ -353,9 +298,9 @@ def count_kmers_sorted(
     padding. Invalid window slots sort to the end under an all-ones sentinel
     and carry zero weight.
 
-    This is the compacted REFERENCE layout; its segment aggregation scatters
-    (~43 Mkeys/s on v5e). The throughput engine is count_kmers_runs (same
-    counts, run-start layout, no scatters — measured ~6x faster at k=21).
+    This is the compacted REFERENCE layout; its segment aggregation
+    scatters. The throughput engine is count_kmers_runs (same counts,
+    run-start layout, no scatters).
     """
     lo, hi, valid = _window_keys(words, lengths, k, canonical, base_valid)
     return sorted_count_from_keys(lo, hi, valid, k)
@@ -364,8 +309,7 @@ def count_kmers_sorted(
 def _run_start_counts(first: jax.Array) -> jax.Array:
     """Run lengths at run starts (0 elsewhere) for a boundary mask over a
     sorted array — scatter-free: next-boundary indices come from one reverse
-    cummin (measured 498 Mkeys/s on v5e vs 43 for the scatter scheme,
-    benchmarks/probe_sort.py)."""
+    cummin."""
     N = first.shape[0]
     idx = jnp.arange(N, dtype=jnp.int32)
     bpos = jnp.where(first, idx, jnp.int32(N))
@@ -464,8 +408,8 @@ def count_kmers_runs(
 ) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
     """Scatter-free sort-based k-mer counting, any k <= 32 — the large-k
     throughput engine (run-start layout; see runs_from_keys for the
-    contract). Bit-identical (key -> count) content vs count_kmers_sorted,
-    ~6x faster at k=21 on v5e (docs/DESIGN.md)."""
+    contract). Bit-identical (key -> count) content vs count_kmers_sorted
+    (docs/DESIGN.md §4)."""
     lo, hi, valid = _window_keys(words, lengths, k, canonical, base_valid)
     return runs_from_keys(lo, hi, valid, k)
 
@@ -474,8 +418,7 @@ def weighted_runs_from_sorted(
     hi_s: jax.Array, lo_s: jax.Array, w_s: jax.Array
 ) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
     """Aggregate sorted (hi, lo) keys with int32 weights into run-start
-    totals — scatter- AND gather-free (both serialize on TPU at ~43-56
-    Mkeys/s; the two scans below run ~450-590 Mel/s, probe_sort.py).
+    totals — scatter- AND gather-free (two scans, DESIGN.md §4).
 
     The trick: with S = exclusive prefix sum of weights (nondecreasing),
     the weight total of the run starting at i is S[next_boundary] - S[i],
@@ -553,60 +496,23 @@ def count_kmers_reads(
 ):
     """Count k-mers over a batch of packed reads.
 
-    mode='dense'/'mxu' -> [4^k] histogram (scatter / matmul lowering);
+    mode='dense'/'mxu' -> [4^k] histogram (scatter / one-hot matmul
+    lowering; 'mxu' above MAX_MXU_K takes the scatter);
     mode='sorted' -> sparse compacted (keys, counts, n_unique);
-    mode='runs' -> same content in run-start layout, scatter-free (~6x
-    faster at k=21 — the large-k engine, see count_kmers_runs).
-    mode='auto' is BACKEND-INVARIANT in its return structure: a dense
-    [4^k] histogram for every k <= MAX_DENSE_K (fastest dense engine for
-    the backend: MXU/Pallas histogram on TPU up to MAX_PALLAS_HIST_K,
-    scatter otherwise) and the runs 4-tuple beyond.
-    mode='auto_layout' picks the fastest ENGINE and returns its native
-    layout, which may differ per backend: on TPU k = 9..12 goes to the
-    runs engine (2.7-4.3x over the dense scatter at 10..12,
-    benchmarks/probe_k1012.py, and 1.2-1.3x over the extended Pallas
-    VMEM histogram at k=9 across long- and short-read shapes, round-5
-    probe — the sort is key-width-independent; densifying afterwards
-    would cost the scatter back). The managed pipeline uses this via
-    auto_dense_max_k().
+    mode='runs' -> same content in run-start layout, scatter-free (the
+    large-k engine, see count_kmers_runs).
+    mode='auto' returns a dense [4^k] histogram (the scatter engine) for
+    every k <= MAX_DENSE_K and the runs 4-tuple beyond. mode='auto_layout'
+    is the name for "fastest engine, native layout"; today it resolves
+    exactly as 'auto' on every platform.
     canonical=True counts min(kmer, revcomp(kmer)) — strand-insensitive.
     base_valid [B, L] bool (e.g. codec.validity_mask) drops every window
     containing an invalid/ambiguous base (N handling) instead of erroring.
     """
     if mode in ("auto", "auto_layout"):
-        from .. import config
-
-        if k > MAX_DENSE_K:
-            mode = "runs"
-        elif (
-            mode == "auto_layout"
-            and jax.default_backend() == "tpu"
-            and k > MAX_MXU_K
-        ):
-            # k = 9..12: the runs engine beats BOTH dense kernels (the
-            # scatter by 2.7-4.3x at 10..12, the extended VMEM histogram
-            # by 1.2-1.3x at 9 — measured across read-length regimes)
-            mode = "runs"
-        elif jax.default_backend() == "tpu" and (
-            k <= MAX_MXU_K
-            or (k <= MAX_PALLAS_HIST_K and config.use_pallas())
-        ):
-            mode = "mxu"  # scatter serializes on TPU; CPU scatter is fine
-        else:
-            mode = "dense"
+        mode = "runs" if k > MAX_DENSE_K else "dense"
     if mode == "mxu":
-        from .. import config
-
-        if config.use_pallas():
-            return count_kmers_dense_pallas(
-                words,
-                lengths,
-                k,
-                canonical,
-                interpret=config.pallas_interpret(),
-                base_valid=base_valid,
-            )
-        if k > MAX_MXU_K:  # k=9 is Pallas-only; XLA falls back to scatter
+        if k > MAX_MXU_K:  # the one-hot product outgrows the scatter
             return count_kmers_dense(words, lengths, k, canonical, base_valid)
         return count_kmers_dense_mxu(words, lengths, k, canonical, base_valid)
     if mode == "dense":
@@ -623,10 +529,9 @@ def top_kmers(hist: jax.Array, n: int) -> Tuple[jax.Array, jax.Array]:
     """(counts, packed k-mer values) of the n most frequent k-mers,
     descending; ties broken by lowest key.
 
-    Extracted iteratively (n rounds of single-value max reduces) rather than
-    with lax.top_k, which serializes ~300x on TPU at ~1M inputs — the same
-    measured finding behind ops.hamming.topk_smallest (docs/DESIGN.md §2);
-    4^k histograms reach 16.7M bins at MAX_DENSE_K. If n exceeds the
+    Extracted iteratively (n rounds of single-value max reduces, as
+    ops.hamming.topk_smallest; docs/DESIGN.md §2); 4^k histograms reach
+    16.7M bins at MAX_DENSE_K. If n exceeds the
     histogram size, the tail is (count=-2^30, key=-1) sentinels.
     """
     from .hamming import topk_smallest
@@ -647,9 +552,8 @@ def spectrum(counts: jax.Array, max_mult: int = 255) -> jax.Array:
     count_kmers_sorted counts, or the run-start count_kmers_runs counts —
     because zero entries (absent keys / non-run slots / padding) are ignored.
     Scatter-free: multiplicities are clipped, one-hot encoded, and contracted
-    against ones on the MXU (scatter-add serializes on TPU, docs/DESIGN.md);
-    bf16 one-hots accumulate exactly in f32 below 2^24 per bin, guaranteed by
-    the <=2^22-row chunking.
+    against ones as a matrix product; bf16 one-hots accumulate exactly in
+    f32 below 2^24 per bin, guaranteed by the <=2^22-row chunking.
     """
     assert 1 <= max_mult <= 4096
     c = jnp.minimum(counts, max_mult).astype(jnp.int32).reshape(-1)

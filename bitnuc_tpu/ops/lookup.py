@@ -8,8 +8,7 @@ abundance annotation. The reference stops at the HashMap itself
 the lookup is a device op over the counted-list layout the counting
 engines emit (count_kmers_sorted / count_kmers_runs / merge_sorted_runs).
 
-TPU formulation (no scatter, no gather — both serialize at ~43-56 Mkeys/s
-on v5e, docs/DESIGN.md): one sort groups table + query rows by key, a
+Formulation (no scatter, no gather, docs/DESIGN.md §7): one sort groups table + query rows by key, a
 segment-sum broadcast hands every row its segment's table count, and a
 second sort on the carried original index un-permutes the answers. The
 segment total is order-independent (query rows carry value 0, the table

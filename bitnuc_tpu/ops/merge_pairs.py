@@ -6,7 +6,7 @@ The reference library has no pairing concept (north-star toolkit
 surface; its closest primitive is the fixed-frame hdist,
 /root/reference/src/utils/functions/hamming/multi.rs).
 
-TPU formulation: the offset search is a `lax.scan` over the STATIC range
+Formulation: the offset search is a `lax.scan` over the STATIC range
 of candidate overlaps — each step shifts the rc(R2) code plane with one
 `dynamic_slice` of a padded array and does a masked elementwise compare
 plus a row reduce, so the whole search compiles to a fixed-shape loop
@@ -40,8 +40,7 @@ def _packed_offset_scan(words1, lens1, rc2w, lens2, min_overlap, mmf):
     """(best_mm, best_o, best_ov) of the offset search in the PACKED domain.
 
     The unpacked scan re-reads two [B, L] i32 code planes per offset
-    (~20 MB/step at B=16k, L=150 — bandwidth-bound on redundant traffic,
-    measured 249 Kpairs/s round 4). Here each step reads two [B, W1] u32
+    (~20 MB/step at B=16k, L=150 of redundant traffic). Here each step reads two [B, W1] u32
     planes (16 bases/word, ~7x less): rc(R2) and its validity mask are
     pre-shifted by r = 0..15 bases ONCE (funnel shifts, the split_packed
     machinery), a step at offset o = 16q + r takes one word-granular
@@ -193,7 +192,7 @@ def merge_pairs(
             jnp.zeros((B,), jnp.int32),
         )
         # unroll: each offset step touches a few [B] vectors — the scan is
-        # loop-overhead-bound like the alignment wavefront (probe_fit_unroll)
+        # loop-overhead-bound like the alignment wavefront
         (best_mm, best_o, best_ov), _ = jax.lax.scan(
             step, init, jnp.arange(n_off, dtype=jnp.int32), unroll=8
         )
@@ -208,10 +207,9 @@ def merge_pairs(
     Lm = L1 + L2
     Wm = bitops.n_words_for(Lm)
     if scan == "packed":
-        # packed fragment construction (round 5): the code-plane path's
-        # [B, Lm] take_along_axis + pack_codes was the op's REAL wall
-        # (probe_mergepairs: offset scan 10 ms, full call 64 — fragment
-        # construction ~54). Build the fragment in the word domain: rc(R2)
+        # packed fragment construction: the code-plane path's [B, Lm]
+        # take_along_axis + pack_codes dominates the op (DESIGN 16).
+        # Build the fragment in the word domain: rc(R2)
         # funnel-shifted up by best_o bases per row (two [B, Wm]
         # word-granular gathers, 16x fewer gathered elements), OR-combined
         # with R1 under its length mask.

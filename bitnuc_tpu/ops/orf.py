@@ -7,7 +7,7 @@ with no in-frame stop it stays OPEN and runs to the last whole codon.
 All six frames are scanned (three forward, three on the reverse
 complement); coordinates are reported on the FORWARD strand.
 
-TPU formulation: zero scatter, zero gather, no per-frame python loops —
+Formulation: zero scatter, zero gather, no per-frame python loops —
 the per-frame "next in-frame stop at or after p" is ONE reverse `cummin`
 over a [B, L/3, 3] view of the stop-position array (the reshape IS the
 frame split: column r holds frame r's codons in order), and winners are
@@ -69,25 +69,8 @@ def _best_orf_one_strand(words, lengths):
     (excluding the stop codon); 0 when no ATG exists. Ties prefer the
     smallest start.
 
-    Dispatch: the fused Pallas kernel (ops/pallas/orfscan.py) on TPU
-    backends — the XLA path's strided reverse cummin is an
-    associative_scan of ~log2(L/3) materialized [B, L] passes, 7.4 of the
-    8.0 ms one-strand cost at [16384, 512] (benchmarks/probe_orf.py);
-    the kernel runs codon build + scan + winner reduces on one VMEM
-    block. Bit-identical (tests/test_orf.py)."""
-    from .. import config
-
-    W = words.shape[-1]
-    if config.use_pallas() and W * 16 <= 32767:
-        from .pallas.orfscan import best_orf_one_strand_pallas
-
-        codes8 = bitops.unpack_words(words)
-        best, start, stopped = best_orf_one_strand_pallas(
-            codes8,
-            jnp.asarray(lengths, jnp.int32),
-            interpret=config.pallas_interpret(),
-        )
-        return best, jnp.where(best > 0, start, 0), stopped
+    The strided reverse cummin below is an associative scan of
+    ~log2(L/3) materialized [B, L] passes."""
     codes = bitops.unpack_words(words).astype(jnp.int32)
     B, L = codes.shape
     lengths = jnp.asarray(lengths, jnp.int32)

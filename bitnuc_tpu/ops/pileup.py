@@ -6,7 +6,7 @@ substitution calls. The reference library has no analog (its comparison
 surface stops at fixed-frame hdist, /root/reference/src/utils/functions/
 hamming/multi.rs); this is north-star toolkit surface.
 
-TPU formulation notes:
+Formulation notes:
 
 - The pileup is ONE dense scatter-add into a [ref_len, 4] int32 grid with
   keys (ref_start + read_offset) * 4 + code. Scatter is normally avoided

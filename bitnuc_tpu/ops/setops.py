@@ -7,7 +7,7 @@ where every row with ct > 0 carries a DISTINCT packed k-mer key — exactly
 what count_kmers_sorted, count_kmers_runs, and merge_sorted_runs produce
 (run-start zeros and sentinel padding rows are ct == 0 and are ignored).
 
-TPU formulation (no scatter, no gather — both serialize, docs/DESIGN.md):
+Formulation (no scatter, no gather, docs/DESIGN.md §7):
 tag each row with its source (A=0, B=1, dead=2), push dead rows' keys to
 the all-ones sentinel, and sort once on (hi, lo, src, -ct). Every key then
 occupies 1-2 adjacent rows with A first, so the combine is a pure
@@ -51,11 +51,9 @@ def combine_counts(
     CONTRACT: each input's live rows are ascending by (hi, lo) — the
     layout every producer in this package emits (count_kmers_sorted,
     count_kmers_runs, compact_runs, this function's own outputs). The
-    contract is LOAD-BEARING on the TPU/Pallas backend (round 5): the
-    combination runs as a bitonic MERGE of the two sorted halves, and an
-    unsorted input silently produces wrong counts there while the XLA
-    backend's full sort would have absorbed it. validate=True checks both
-    inputs host-side first (one pass + a device sync — for debugging, not
+    full sort absorbs an unsorted input today, but a merge of the two
+    sorted halves would not, so callers must keep it. validate=True checks
+    both inputs host-side first (one pass + a device sync — for debugging, not
     hot loops) and raises ValueError on a violation.
 
     The output has static length len(A) + len(B). compact=True (default):
@@ -64,10 +62,8 @@ def combine_counts(
     padding. compact=False skips the compaction sort: keys are still
     ascending but zero-count rows INTERLEAVE with live ones (the run-start
     convention, ops.kmer) — a legal input to further combine_counts calls
-    and to ops.kmer.compact_runs, and the fast form for combine CHAINS:
-    on the merge-engine path (TPU/Pallas) it skips the one remaining
-    lax.sort, measured 132 -> 63 ms at 8M+8M rows on chip (round 5,
-    docs/DESIGN.md 6b).
+    and to ops.kmer.compact_runs, and the form for combine CHAINS: it
+    skips the compaction sort (docs/DESIGN.md 6b).
     """
     if validate:
         import numpy as np
@@ -104,16 +100,14 @@ def _combine_counts(
     compact: bool = True,
 ) -> Tuple[jax.Array, jax.Array, jax.Array, jax.Array]:
     assert mode in MODES, f"mode must be one of {MODES}"
-    from .. import config
-
     sent = jnp.uint32(0xFFFFFFFF)
 
     a_ct = jnp.asarray(a_ct, jnp.int32)
     b_ct = jnp.asarray(b_ct, jnp.int32)
     n_ab = a_ct.shape[0] + b_ct.shape[0]
 
-    # Dead-row handling, IDENTICAL on both backends so the raw output
-    # arrays are backend-invariant (round-5 review finding). Dead rows
+    # Dead-row handling that keeps the raw output arrays independent of
+    # dead rows' keys (tests/test_setops.py). Dead rows
     # (ct <= 0) come in two shapes, both kept sorted here: an all-dead
     # SUFFIX (the compact layouts' padding, whose keys are arbitrary)
     # remaps to the all-ones sentinel; INTERIOR dead rows (the run-start
@@ -137,30 +131,11 @@ def _combine_counts(
 
     a_side = _side(a_hi, a_lo, a_ct, 0)
     b_side = _side(b_hi, b_lo, b_ct, 1)
-    if config.use_pallas():
-        # both inputs are SORTED counted lists (the function's contract),
-        # so the combination sort is a merge: the bitonic merge engine
-        # (ops/pallas/merge.py) runs it in log N compare-exchange stages
-        # instead of lax.sort's log^2 — measured 1.76x at 8M+8M on chip
-        # (benchmarks/probe_merge2.py, DESIGN.md 6b).
-        from .pallas.merge import merge_sorted
-
-        hi_s, lo_s, src_w, ct_s = merge_sorted(
-            a_side,
-            b_side,
-            n_keys=3,
-            pad_val=(0,),
-            interpret=config.pallas_interpret(),
-        )
-        src_s = src_w.astype(jnp.int32)  # pad rows -> -1: matches no branch
-    else:
-        hi_s, lo_s, src_w, ct_s = jax.lax.sort(
-            tuple(
-                jnp.concatenate([x, y]) for x, y in zip(a_side, b_side)
-            ),
-            num_keys=3,
-        )
-        src_s = src_w.astype(jnp.int32)
+    hi_s, lo_s, src_w, ct_s = jax.lax.sort(
+        tuple(jnp.concatenate([x, y]) for x, y in zip(a_side, b_side)),
+        num_keys=3,
+    )
+    src_s = src_w.astype(jnp.int32)
 
     # neighbor pairing: a live A row whose successor is a live B row with
     # the same key holds that key's (a, b) count pair

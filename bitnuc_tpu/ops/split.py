@@ -29,7 +29,7 @@ def shift_reads_down(words: jax.Array, n_bases: jax.Array) -> jax.Array:
     words: [..., W] uint32; n_bases: [...] int32 (>= 0). Returns [..., W]
     uint32 where base i of the output is base i + n_bases of the input;
     vacated high positions are zero. This is the batched funnel shift —
-    the TPU analog of split.rs:80-94's carry loop.
+    the batched analog of split.rs:80-94's carry loop.
     """
     W = words.shape[-1]
     n = jnp.asarray(n_bases, jnp.int32)

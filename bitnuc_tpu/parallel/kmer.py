@@ -4,13 +4,13 @@ Two sharding regimes, both producing histograms identical to the single-device
 result (and to the reference README's HashMap semantics, README.md:164-180):
 
   * batch-sharded (DP): each device counts its slab of reads into a local
-    dense histogram, merged with one psum over ICI. The merge is O(4^k)
+    dense histogram, merged with one psum. The merge is O(4^k)
     per device regardless of batch size, so scaling is linear in reads.
 
   * sequence-sharded (SP analog): one very long sequence's packed words are
     sharded along the word axis; windows crossing a shard edge need the first
     ceil((k-1)/16) words of the right neighbor — a halo exchange via
-    ppermute (the TPU analog of the reference's cross-word carry handling,
+    ppermute (the device analog of the reference's cross-word carry handling,
     src/utils/functions/split.rs:83-94, lifted to the device level).
 """
 
@@ -66,8 +66,6 @@ def count_kmers_sharded(
         in_specs.append(P(axis, None))
         args.append(base_valid)
 
-    # check_vma=False: the Pallas histogram kernel's out_shape carries no
-    # varying-axis metadata, which trips the static replication check
     return jax.shard_map(
         local,
         mesh=mesh,
@@ -81,8 +79,7 @@ def _allgather_merge_sorted(lo, hi, counts, axis):
     """Merge per-device sorted (key, count) lists into the replicated global
     list: all_gather, push zero-count padding rows to the sentinel so they
     fold into the tail, then one more sort + gather-free weighted run
-    aggregation (ops.kmer.weighted_runs_from_sorted — the scatter-based
-    segment count runs ~10x slower on TPU). Output is RUN-START layout:
+    aggregation (ops.kmer.weighted_runs_from_sorted, scatter-free). Output is RUN-START layout:
     keys ascending, each distinct key's total at its first slot, zeros
     elsewhere; dead (sentinel) runs total 0."""
     lo_g = jax.lax.all_gather(lo, axis).reshape(-1)
@@ -293,7 +290,7 @@ def count_kmers_seqsharded(
 
     words: [Wtot] uint32, Wtot divisible by the mesh axis size; total_len:
     scalar int32 total bases. Windows crossing shard boundaries are covered by
-    a (k-1)-base halo fetched from the right neighbor over ICI (ppermute).
+    a (k-1)-base halo fetched from the right neighbor (ppermute).
     Returns a replicated [4^k] int32 histogram.
     """
     # dense bins (and u32 lo keys) cap this path at MAX_DENSE_K
@@ -320,23 +317,9 @@ def count_kmers_seqsharded(
         valid = (pos < W_loc * bitops.BASES_PER_WORD) & (
             base0 + pos <= jnp.asarray(total_len, jnp.int32) - k
         )
-        from .. import config
-
-        if k <= kmer_ops.MAX_MXU_K and config.use_pallas():
-            from ..ops.pallas import histogram
-
-            keys = (
-                jnp.where(valid[None, :], lo, jnp.uint32(4**k))
-                .astype(jnp.int32)
-                .reshape(-1)
-            )
-            hist = histogram.histogram_from_keys(
-                keys, k, interpret=config.pallas_interpret()
-            )
-        else:
-            keys = jnp.where(valid[None, :], lo, 0).reshape(-1).astype(jnp.int32)
-            wts = valid.astype(jnp.int32).reshape(-1)
-            hist = jnp.zeros(4**k, jnp.int32).at[keys].add(wts)
+        keys = jnp.where(valid[None, :], lo, 0).reshape(-1).astype(jnp.int32)
+        wts = valid.astype(jnp.int32).reshape(-1)
+        hist = jnp.zeros(4**k, jnp.int32).at[keys].add(wts)
         return jax.lax.psum(hist, axis)
 
     return jax.shard_map(

@@ -1,14 +1,14 @@
 """Device mesh and sharding helpers.
 
 The reference is single-threaded (SURVEY.md §2.3: no parallelism of any kind);
-this layer is new, built the TPU way: a jax.sharding.Mesh over chips,
-NamedSharding annotations, XLA collectives over ICI/DCN. Axis convention:
+this layer is new: a jax.sharding.Mesh over devices, NamedSharding
+annotations, collectives inserted by XLA. Axis convention:
 
   * "data"  — batch of reads (DP): each device owns a slab of reads
   * "seq"   — words of one long sequence (SP analog): halo exchange for
               windows crossing shard edges (see parallel/kmer.py)
 
-On a multi-host pod slice, call runtime.initialize() first; meshes made here
+Across several hosts, call runtime.initialize() first; meshes made here
 then span all hosts' devices.
 """
 

@@ -1,11 +1,13 @@
 """Multi-host runtime helpers.
 
-The reference has no distributed runtime (SURVEY.md §2.3). On a TPU pod
-slice, each host process calls initialize() once — BEFORE any other JAX API
+The reference has no distributed runtime (SURVEY.md §2.3). With several
+host processes, each calls initialize() once — BEFORE any other JAX API
 that touches the backend — then builds meshes; jax.distributed wires the
-hosts and jax.devices() spans the slice. Collectives ride ICI within a slice
-and DCN across slices — all inserted by XLA from sharding annotations, never
-hand-rolled transport.
+processes and jax.devices() spans all of them. On one host, one process
+drives all its devices and needs no initialize(). Collectives (NCCL
+between GPUs) are inserted by XLA from sharding annotations, never
+hand-rolled transport; the GPUs of one host are joined all to all, so a
+mesh follows the algorithm alone, not a wiring topology.
 
 Ordering is load-bearing: any backend-initializing call (jax.devices(),
 jax.process_count(), first trace...) locks in a single-process runtime, after

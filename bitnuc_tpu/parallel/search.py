@@ -1,11 +1,12 @@
 """Distributed Hamming-distance database search.
 
 The BASELINE.json headline workload (config 5): a query k-mer/read scanned
-against a packed database of up to 1e8 entries, sharded across devices/hosts.
-Each device scans its slab (XOR + popcount, ops/hamming.py — the Pallas
-kernel twin lives in ops/pallas/hamming.py), takes a local top-k, and the
-per-device candidates are merged with one all_gather + final top-k. Traffic
-over ICI is O(devices * k), independent of database size.
+against a packed database of up to 1e8 entries, sharded across devices.
+Each device scans its slab (XOR + popcount, ops/hamming.py; query batches
+on a GPU through the Triton kernel, ops/hamming_triton.py), takes a local
+top-k, and the per-device candidates are merged with one all_gather + final
+top-k. Traffic between devices is O(devices * k), independent of database
+size.
 """
 
 from __future__ import annotations
@@ -93,7 +94,8 @@ def hdist_search_batch_sharded(
     each row ascending — exactly hamming.hdist_topk_batch on the unsharded
     database (tests/test_parallel.py). Reference semantics: hdist
     (src/utils/functions/hamming/multi.rs:122-160) per (query, row) pair.
-    ICI traffic is O(devices * Q * topk), independent of database size."""
+    Traffic between devices is O(devices * Q * topk), independent of
+    database size."""
 
     def local(qs, db_loc):
         D_loc = db_loc.shape[0]
@@ -121,24 +123,17 @@ def hdist_search_batch_db_sharded(
     d_valid=None,
 ) -> Tuple[jax.Array, jax.Array]:
     """Per-query top-k over a sharded WORD-MAJOR database [W, D] (PackedDB
-    layout) — the scan-optimal twin of hdist_search_batch_sharded. On TPU
-    each device runs the batched Pallas kernel on its slab: the db tile is
-    read from HBM once per TILE_Q queries instead of once per query.
+    layout) — the scan-optimal twin of hdist_search_batch_sharded. Each
+    device scans its slab with hamming.hdist_many_to_many_wm (on a GPU the
+    Triton kernel, which reads each db tile once per block of queries).
     d_valid: with a database zero-padded to a device multiple, the count of
     REAL columns — padding columns rank at distance n_bases + 1 so they can
     never displace genuine entries from the top-k."""
-    from .. import config
-    from ..ops.pallas import hamming as ph
 
     def local(qs, db_loc_wm):
         D_loc = db_loc_wm.shape[1]
         me = jax.lax.axis_index(axis).astype(jnp.int32)
-        if config.use_pallas():
-            d = ph.hdist_scan_batch_pallas(
-                qs, db_loc_wm, n_bases, interpret=config.pallas_interpret()
-            )
-        else:
-            d = hamming.hdist_many_to_many(qs, jnp.transpose(db_loc_wm), n_bases)
+        d = hamming.hdist_many_to_many_wm(qs, db_loc_wm, n_bases)
         if d_valid is not None:
             gidx = me * D_loc + jnp.arange(D_loc, dtype=jnp.int32)
             d = jnp.where(gidx[None, :] < d_valid, d, n_bases + 1)
@@ -146,7 +141,7 @@ def hdist_search_batch_db_sharded(
         dd, idx = jax.vmap(lambda row: hamming.topk_smallest(row, k_loc))(d)
         return dd, idx + me * D_loc
 
-    # check_vma=False: the Pallas kernel's out_shape carries no varying-axis
+    # check_vma=False: the kernel's out_shape carries no varying-axis
     # metadata, which trips the static replication check
     cand_d, cand_i = jax.shard_map(
         local,
@@ -181,22 +176,12 @@ def hdist_search_grid(
     (distances [Q, topk], global_indices [Q, topk]) — each row identical
     to the single-device hamming.hdist_topk_batch. d_valid: real column
     count when the database was zero-padded (padding ranks last)."""
-    from .. import config
-    from ..ops.pallas import hamming as ph
-
     n_d = mesh.shape[daxis]
 
     def local(qs_loc, db_loc_wm):
         D_loc = db_loc_wm.shape[1]
         me = jax.lax.axis_index(daxis).astype(jnp.int32)
-        if config.use_pallas():
-            d = ph.hdist_scan_batch_pallas(
-                qs_loc, db_loc_wm, n_bases, interpret=config.pallas_interpret()
-            )
-        else:
-            d = hamming.hdist_many_to_many(
-                qs_loc, jnp.transpose(db_loc_wm), n_bases
-            )
+        d = hamming.hdist_many_to_many_wm(qs_loc, db_loc_wm, n_bases)
         if d_valid is not None:
             gidx = me * D_loc + jnp.arange(D_loc, dtype=jnp.int32)
             d = jnp.where(gidx[None, :] < d_valid, d, n_bases + 1)
@@ -257,30 +242,23 @@ def hdist_search_db_sharded(
 ) -> Tuple[jax.Array, jax.Array]:
     """Sharded top-k search over a WORD-MAJOR database [W, D] (PackedDB
     layout, D divisible by the axis size) — the scan-optimal twin of
-    hdist_search_sharded. On TPU each device runs the fused Pallas scan
-    kernel on its slab; the candidate merge is identical. d_valid: count
+    hdist_search_sharded: each device scans its slab in place
+    (hamming.hdist_one_to_many_wm); the candidate merge is identical. d_valid: count
     of real columns when the database was zero-padded to a device multiple
     (padding ranks at distance n_bases + 1)."""
-    from .. import config
-    from ..ops.pallas import hamming as ph
 
     def local(q, db_loc_wm):
         D_loc = db_loc_wm.shape[1]
         me = jax.lax.axis_index(axis).astype(jnp.int32)
-        if config.use_pallas():
-            d = ph.hdist_scan_pallas(
-                q, db_loc_wm, n_bases, interpret=config.pallas_interpret()
-            )
-        else:
-            d = hamming.hdist_one_to_many(q, jnp.transpose(db_loc_wm), n_bases)
+        d = hamming.hdist_one_to_many_wm(q, db_loc_wm, n_bases)
         if d_valid is not None:
             gidx = me * D_loc + jnp.arange(D_loc, dtype=jnp.int32)
             d = jnp.where(gidx < d_valid, d, n_bases + 1)
         dd, idx = hamming.topk_smallest(d, min(topk, D_loc))
         return dd, idx + me * D_loc
 
-    # check_vma=False: the Pallas scan kernel's out_shape carries no
-    # varying-axis metadata, which trips the static replication check
+    # check_vma=False: the kernel's out_shape carries no varying-axis
+    # metadata, which trips the static replication check
     cand_d, cand_i = jax.shard_map(
         local,
         mesh=mesh,

@@ -1,7 +1,7 @@
 """Streaming, restartable k-mer counting pipelines.
 
 The reference is a leaf library: no I/O, no recovery (SURVEY.md §5 marks
-both absent). A production TPU job needs crash-safe long runs. count_fastq
+both absent). A production accelerator job needs crash-safe long runs. count_fastq
 streams a FASTQ through the staged loader (io.iter_fastq_batches: native
 scan + host pack + 2-bit upload, prefetch thread), accumulates k-mer counts
 on device, and optionally checkpoints progress to disk every N batches so a
@@ -21,8 +21,7 @@ Accumulators:
     — no per-batch sort) that buffer device-side and fold into the sorted
     run-list accumulator with one deferred 2-sort merge per
     capacity-sized superbatch (ops.kmer.merge_sorted_runs + a 3-array
-    compaction sort; measured 1.8x faster per batch than the round-2
-    merge-every-batch scheme at cap=2N, benchmarks/probe_merge.py).
+    compaction sort) instead of a merge every batch.
     Capacity doubles on demand. The device-side
     prefix sums are int32, so jobs are capped at 2^31 - 2 windows per run
     (~2.1 Gwindows) and refuse loudly beyond.
@@ -45,10 +44,8 @@ _SPARSE_MAX_WINDOWS = (1 << 31) - 2
 
 def _densify(table: dict, k: int) -> np.ndarray:
     """{packed_kmer: count} -> int64 [4^k] histogram (the k <= MAX_DENSE_K
-    return contract, when the ENGINE ran sparse — on TPU the runs engine
-    counts k = 10..12 2.7-4.3x faster than the dense scatter
-    (benchmarks/probe_k1012.py), and one host scatter at fold time keeps
-    the dense return shape)."""
+    return contract, when the ENGINE ran sparse: one host scatter at fold
+    time keeps the dense return shape)."""
     hist = np.zeros(4 ** k, np.int64)
     if table:
         keys = np.fromiter(table.keys(), np.int64, len(table))
@@ -136,8 +133,7 @@ class _SparseAcc:
     Batches arrive as RAW unsorted window keys (ops.kmer.raw_window_keys,
     weight 0 on invalid slots) and buffer device-side until the pending rows
     reach the accumulator capacity; one 2-sort merge then folds the whole
-    superbatch (measured 1.8x faster per batch than the round-2
-    merge-every-batch scheme, benchmarks/probe_merge.py). Sorted run lists
+    superbatch instead of a merge every batch. Sorted run lists
     (e.g. a resumed checkpoint state) are equally valid pending entries —
     the merge sorts everything it is fed."""
 
@@ -334,8 +330,7 @@ def count_fasta(
         raise ValueError(f"on_invalid must be 'raise' or 'skip', got {on_invalid!r}")
     skip = on_invalid == "skip"
     dense_out = k <= kmer_ops.MAX_DENSE_K  # return contract
-    dense = k <= kmer_ops.auto_dense_max_k()  # engine (TPU: runs for 10-12;
-    # k=9 stays dense for job-scale capacity — see auto_dense_max_k)
+    dense = k <= kmer_ops.auto_dense_max_k()  # engine (see auto_dense_max_k)
     seg = int(seg_bases)
     if seg < 16:
         raise ValueError(f"seg_bases must be >= 16, got {seg}")
@@ -510,8 +505,7 @@ def count_fastq(
 
         raise InvalidLength(k)
     dense_out = k <= kmer_ops.MAX_DENSE_K  # return contract
-    dense = k <= kmer_ops.auto_dense_max_k()  # engine (TPU: runs for 10-12;
-    # k=9 stays dense for job-scale capacity — see auto_dense_max_k)
+    dense = k <= kmer_ops.auto_dense_max_k()  # engine (see auto_dense_max_k)
     if on_invalid not in ("raise", "skip"):
         raise ValueError(f"on_invalid must be 'raise' or 'skip', got {on_invalid!r}")
     skip = on_invalid == "skip"
@@ -522,7 +516,7 @@ def count_fastq(
         "max_len": -1 if max_len is None else int(max_len),
         "canonical": int(canonical),
         "on_invalid": on_invalid,
-        # engine is backend-dependent (auto_dense_max_k): refuse to resume a
+        # engine comes from auto_dense_max_k: refuse to resume a
         # dense-layout checkpoint under the sparse engine or vice versa
         "engine": "dense" if dense else "sparse",
         **_file_fingerprint(path),

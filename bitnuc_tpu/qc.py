@@ -132,7 +132,7 @@ class _Acc:
             # runs 21 Mbases/s vs 10.6 for the jitted one-hot fold on
             # XLA:CPU (the 64-wide one-hot reduce loses to bincount), and
             # quality bytes are host-resident by design — numpy is the
-            # default; the jitted fold stays for TPU-resident pipelines
+            # default; the jitted fold stays for device-resident pipelines
             # and as a second implementation for parity tests.
             use_jax = False
         if not use_jax and use_native is not False:

@@ -1,6 +1,6 @@
 """Sequence containers.
 
-``PackedReads`` is the device-native batch container — the TPU-first analog of
+``PackedReads`` is the device-native batch container — the batch-first analog of
 the reference's ``PackedSequence`` (src/sequence.rs:5-9). Where the reference
 holds one sequence per object with the caller looping, PackedReads holds a
 whole batch as rectangular device arrays: ``words: uint32[batch, W]``,

@@ -1,7 +1,7 @@
 """Low-level bit utilities shared by the XLA and Pallas paths.
 
-Device words are uint32 (the TPU VPU is 32-bit-lane hardware; there is no
-native 64-bit vector path). One reference u64 word (32 bases,
+Device words are uint32 (accelerator vector units are 32-bit-lane
+hardware). One reference u64 word (32 bases,
 src/utils/packing/naive.rs:17) is represented as two consecutive
 little-endian uint32 lanes: lane 2j holds bases [32j, 32j+16), lane 2j+1
 holds bases [32j+16, 32j+32). The bitstreams are identical, so all

@@ -1,5 +1,6 @@
 """Profiling helpers (the reference's only perf tooling is criterion micro-
-benchmarks, SURVEY.md §5; on TPU the native tool is the XLA profiler).
+benchmarks, SURVEY.md §5; on the GPU the tool is jax.profiler, which
+traces the card).
 
 Usage:
     from bitnuc_tpu.utils.profiling import trace

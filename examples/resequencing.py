@@ -10,17 +10,11 @@ calls the planted variants from the gapless pileup. On a multi-chip mesh
 use mapper.map_reads_sharded (reads sharded, index replicated).
 """
 
-import os
 import sys
 
 import numpy as np
 
 sys.path.insert(0, ".")
-
-if os.environ.get("BITNUC_EXAMPLE_DEVICE") == "cpu":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
 
 import bitnuc_tpu as bn
 from bitnuc_tpu.ops import pileup

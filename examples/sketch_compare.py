@@ -15,11 +15,6 @@ import numpy as np
 
 sys.path.insert(0, ".")
 
-if os.environ.get("BITNUC_EXAMPLE_DEVICE") == "cpu":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 import bitnuc_tpu as bn
 
 

@@ -14,7 +14,6 @@ treat ordinary test failures as real failures (no retry).
 Usage:
     python scripts/run_tests.py              # 4 chunks, full suite
     python scripts/run_tests.py -n 6 -- -k codec   # extra pytest args
-    BITNUC_BACKEND=pallas python scripts/run_tests.py
 
 Exit status: 0 iff every chunk ends green. Chunks are split by test FILE
 (stable round-robin by size, largest first) so each chunk is a valid

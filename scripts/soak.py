@@ -2,7 +2,6 @@
 
 Run: python scripts/soak.py [seed] [budget_seconds]  (CPU; clears jax caches
 periodically — fully random shapes grow the jit cache without bound).
-Last full run: 295 trials / 2406 s, zero failures (round 5, seed 3).
 """
 import os
 import sys
@@ -14,11 +13,9 @@ import numpy as np
 import jax, jax.numpy as jnp
 
 jax.config.update("jax_platforms", "cpu")
-from bitnuc_tpu.ops import merge_pairs as MP, setops, kmer as K, hamming, orf
-from bitnuc_tpu.ops.pallas.orfscan import best_orf_one_strand_pallas
-from bitnuc_tpu import assemble, native, config, oracle
+from bitnuc_tpu.ops import merge_pairs as MP, setops, kmer as K, hamming
+from bitnuc_tpu import assemble, native, oracle
 from bitnuc_tpu.sequence import PackedReads
-from bitnuc_tpu.utils import bitops
 
 seed = int(sys.argv[1]) if len(sys.argv) > 1 else 0
 budget_s = float(sys.argv[2]) if len(sys.argv) > 2 else 600
@@ -52,7 +49,7 @@ while time.time() - t0 < budget_s:
     for x, y, nm in zip(ra, rb, ("w","l","m","ov","mm")):
         assert np.array_equal(np.asarray(x), np.asarray(y)), ("merge", trial, nm, L1, L2, mo)
 
-    # --- combine_counts chain vs dicts, random backend per trial ------
+    # --- combine_counts chain vs dicts -------------------------------
     k = int(rng.integers(3, 14))
     sets = [[rseq(int(rng.integers(k, 90))) for _ in range(3)] for _ in range(3)]
     parts = []
@@ -64,12 +61,8 @@ while time.time() - t0 < budget_s:
             lo, hi, ct, _ = K.count_kmers_runs(r.words, r.lengths, k)
         parts.append((lo, hi, ct))
     mode = ("intersect_min", "subtract", "union_sum", "union_max")[int(rng.integers(4))]
-    be = ("xla", "pallas")[int(rng.integers(2))]
-    with config.backend(be):
-        setops.combine_counts.clear_cache()
-        mid = setops.combine_counts(*parts[0], *parts[1], mode=mode, compact=bool(rng.integers(2)))
-        out = setops.combine_counts(*mid[:3], *parts[2], mode=mode)
-    setops.combine_counts.clear_cache()
+    mid = setops.combine_counts(*parts[0], *parts[1], mode=mode, compact=bool(rng.integers(2)))
+    out = setops.combine_counts(*mid[:3], *parts[2], mode=mode)
     nu = int(out[3])
     got = {(int(h)<<32)|int(l): int(c) for l, h, c in zip(np.asarray(out[0])[:nu], np.asarray(out[1])[:nu], np.asarray(out[2])[:nu])}
     ds = []
@@ -79,7 +72,7 @@ while time.time() - t0 < budget_s:
             for key, c in oracle.count_kmers(q, k).items(): d[key] = d.get(key, 0) + c
         ds.append(d)
     want = setops.combine_dicts(setops.combine_dicts(ds[0], ds[1], mode), ds[2], mode)
-    assert got == want, ("setops", trial, mode, be, k)
+    assert got == want, ("setops", trial, mode, k)
 
     # --- blocked topk vs iterative ------------------------------------
     Q = int(rng.integers(1, 7)); D = int(rng.integers(1, 4000)); kk = int(rng.integers(1, 34))
@@ -88,16 +81,6 @@ while time.time() - t0 < budget_s:
     g = hamming.topk_smallest_batch(vals, kk)
     assert np.array_equal(np.asarray(g[0]), np.asarray(w[0])), ("topk-d", trial, Q, D, kk)
     assert np.array_equal(np.asarray(g[1]), np.asarray(w[1])), ("topk-i", trial, Q, D, kk)
-
-    # --- orf kernel vs XLA on ragged ----------------------------------
-    seqs = [rseq(int(n)) for n in rng.integers(1, 200, int(rng.integers(1, 16)))]
-    reads = PackedReads.from_ascii(seqs)
-    with config.backend("xla"):
-        w3 = orf._best_orf_one_strand(reads.words, reads.lengths)
-    g3 = best_orf_one_strand_pallas(bitops.unpack_words(reads.words), reads.lengths, interpret=True)
-    g3 = (g3[0], jnp.where(g3[0] > 0, g3[1], 0), g3[2])
-    for a, b2 in zip(g3, w3):
-        assert np.array_equal(np.asarray(a), np.asarray(b2)), ("orf", trial)
 
     # --- native spectrum vs numpy twin vs device runs -----------------
     B2 = int(rng.integers(1, 12)); L = int(rng.integers(5, 120)); k2 = int(rng.integers(2, 32))

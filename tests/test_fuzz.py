@@ -1,9 +1,9 @@
 """Randomized cross-implementation equivalence — the analog of the
 reference's property tests (random roundtrips over every length,
-src/utils/mod.rs:114-133) plus its simd/nosimd CI matrix, but diffing all
-four implementations directly in one process:
+src/utils/mod.rs:114-133) plus its simd/nosimd CI matrix, but diffing the
+implementations directly in one process:
 
-    numpy oracle  ==  native C++  ==  XLA batch ops  ==  Pallas (interpret)
+    numpy oracle  ==  native C++ (per sequence and batched)  ==  XLA batch ops
 """
 
 import numpy as np
@@ -15,7 +15,6 @@ import jax.numpy as jnp  # noqa: E402
 import bitnuc_tpu as bn  # noqa: E402
 from bitnuc_tpu import native, oracle  # noqa: E402
 from bitnuc_tpu.ops import codec  # noqa: E402
-from bitnuc_tpu.ops.pallas import pack as ppack, unpack as punpack  # noqa: E402
 
 from conftest import random_seq  # noqa: E402
 
@@ -44,14 +43,15 @@ def test_codec_four_way(rng, trial):
         ref = oracle.encode(s)
         np.testing.assert_array_equal(u64[i, : len(ref)], ref)
 
-    # Pallas interpret
-    wp, fbp = ppack.encode_reads_pallas(
-        jnp.asarray(arr), jnp.asarray(lens), interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(wx), np.asarray(wp))
-    dx = codec.decode_reads_xla(wx, jnp.asarray(lens))
-    dp = punpack.decode_reads_pallas(wx, jnp.asarray(lens), interpret=True)
-    np.testing.assert_array_equal(np.asarray(dx), np.asarray(dp))
+    # native batched host packer (the staged loader's path)
+    if native.available():
+        masked = np.where(np.arange(L)[None, :] < lens[:, None], arr, 0)
+        wn = native.encode_batch(masked.astype(np.uint8), u64.shape[1])
+        np.testing.assert_array_equal(wn, u64)
+    dx = np.asarray(codec.decode_reads_xla(wx, jnp.asarray(lens), L))
+    for i, s in enumerate(seqs):
+        assert dx[i, : len(s)].tobytes() == s.upper()
+        assert not dx[i, len(s):].any()
 
 
 @pytest.mark.parametrize("trial", range(3))
@@ -83,11 +83,7 @@ def test_kmer_modes_agree(rng, trial):
     w, _ = codec.encode_reads_xla(jnp.asarray(arr), jnp.asarray(lens))
     dense = np.asarray(kmer.count_kmers_dense(w, jnp.asarray(lens), k))
     mxu = np.asarray(kmer.count_kmers_dense_mxu(w, jnp.asarray(lens), k))
-    pal = np.asarray(
-        kmer.count_kmers_dense_pallas(w, jnp.asarray(lens), k, interpret=True)
-    )
     np.testing.assert_array_equal(dense, mxu)
-    np.testing.assert_array_equal(dense, pal)
     lo, hi, counts, n_u = kmer.count_kmers_sorted(w, jnp.asarray(lens), k)
     sparse = {
         int(np.asarray(lo)[i]): int(np.asarray(counts)[i]) for i in range(int(n_u))
@@ -198,23 +194,18 @@ def test_merge_pairs_scans_agree(rng, trial):
 
 @pytest.mark.parametrize("trial", range(3))
 def test_orf_kernel_fuzz(rng, trial):
-    """orfscan kernel (interpret) vs the XLA strand path on random ragged
-    batches — the 6-frame fuzz analog of test_codec_four_way."""
-    from bitnuc_tpu import config
+    """longest_orf vs the 6-frame python oracle on random ragged batches
+    (the ORF analog of test_codec_four_way)."""
     from bitnuc_tpu.ops import orf
-    from bitnuc_tpu.ops.pallas.orfscan import best_orf_one_strand_pallas
     from bitnuc_tpu.sequence import PackedReads
-    from bitnuc_tpu.utils import bitops
+    from test_orf import naive_longest
 
     seqs = [
         random_seq(rng, int(n)).upper() for n in rng.integers(1, 300, 32)
     ]
     reads = PackedReads.from_ascii(seqs)
-    with config.backend("xla"):
-        want = orf._best_orf_one_strand(reads.words, reads.lengths)
-    got = best_orf_one_strand_pallas(
-        bitops.unpack_words(reads.words), reads.lengths, interpret=True
-    )
-    got = (got[0], jnp.where(got[0] > 0, got[1], 0), got[2])
-    for g, w, nm in zip(got, want, ("len", "start", "stopped")):
-        np.testing.assert_array_equal(np.asarray(g), np.asarray(w), nm)
+    got = [np.asarray(x) for x in orf.longest_orf(reads.words, reads.lengths)]
+    for i, q in enumerate(seqs):
+        g = (int(got[0][i]), int(got[1][i]), int(got[2][i]), bool(got[3][i]),
+             bool(got[4][i]))
+        assert g == naive_longest(q), (i, q)

@@ -1,109 +1,91 @@
-"""Parity tests for the bitonic merge engine (ops/pallas/merge.py).
+"""Merging two sorted counted k-mer lists: ops.setops.combine_counts (one
+lax.sort over the concatenated lists, then neighbour pairing) against the
+dict algebra of setops.combine_dicts, across list sizes, key-word ties,
+heavy cross-list overlap, dead sentinel rows and lopsided inputs."""
 
-The engine must equal lax.sort(concat(a, b), num_keys) up to ties between
-identical FULL key tuples — so tests compare (key..., payload...) row
-multisets, and exact arrays where keys are unique. Pallas runs in
-interpret mode on CPU (the simd/nosimd analog, SURVEY.md §4)."""
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from bitnuc_tpu.ops.pallas.merge import merge_sorted
+from bitnuc_tpu.ops import setops
 
 SENT = np.uint32(0xFFFFFFFF)
 
 
-def _rows(arrs, n):
-    return sorted(tuple(int(a[i]) for a in arrs) for i in range(n))
-
-
-def _check(a_arrs, b_arrs, n_keys):
-    got = merge_sorted(
-        tuple(jnp.asarray(x) for x in a_arrs),
-        tuple(jnp.asarray(x) for x in b_arrs),
-        n_keys,
-        interpret=True,
+def _counted(rng, n, hi_range=1 << 32, lo_range=1 << 32):
+    """A sorted counted list of n distinct (hi, lo) keys, counts 1..99."""
+    n_keys = min(n, hi_range * lo_range)
+    keys = np.zeros(0, np.uint64)
+    while len(keys) < n_keys:
+        hi = rng.integers(0, hi_range, 2 * n_keys + 8, dtype=np.uint64)
+        lo = rng.integers(0, lo_range, 2 * n_keys + 8, dtype=np.uint64)
+        keys = np.unique(np.concatenate([keys, (hi << np.uint64(32)) | lo]))
+    keys = np.sort(rng.choice(keys, n_keys, replace=False))
+    return (
+        (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32),
+        (keys >> np.uint64(32)).astype(np.uint32),
+        rng.integers(1, 100, n_keys).astype(np.int32),
     )
-    got = [np.asarray(g) for g in got]
-    na, nb = len(a_arrs[0]), len(b_arrs[0])
-    want = jax.lax.sort(
-        tuple(
-            jnp.concatenate([jnp.asarray(x), jnp.asarray(y)])
-            for x, y in zip(a_arrs, b_arrs)
-        ),
-        num_keys=n_keys,
-    )
-    want = [np.asarray(w) for w in want]
-    # sorted by key words
-    keys = list(zip(*[g[: na + nb] for g in got[:n_keys]]))
-    # pad rows carry all-ones keys: the first na+nb rows of the merge must
-    # be the sorted concat UNLESS real all-ones keys tie with pad rows
-    n_real_sent = int(
-        np.sum(np.all([w == SENT for w in want[:n_keys]], axis=0))
-    )
-    if n_real_sent == 0:
-        cut = na + nb
-        assert _rows([g[:cut] for g in got], cut) == _rows(want, cut)
-        for g, w in zip(got[:n_keys], want):
-            assert np.array_equal(g[:cut], w[:cut])
-    else:
-        # compare ignoring rows whose full key is the sentinel
-        mask_w = ~np.all([w == SENT for w in want[:n_keys]], axis=0)
-        mask_g = ~np.all(
-            [g[: na + nb] == SENT for g in got[:n_keys]], axis=0
-        )
-        gg = [g[: na + nb][mask_g] for g in got]
-        ww = [w[mask_w] for w in want]
-        assert _rows(gg, int(mask_g.sum())) == _rows(ww, int(mask_w.sum()))
-    assert keys == sorted(keys)
 
 
-def _sorted_list(rng, n, n_keys, hi=1 << 32, payloads=1):
-    ks = [rng.integers(0, hi, size=n).astype(np.uint32) for _ in range(n_keys)]
-    order = np.lexsort(tuple(reversed(ks)))
-    out = [k[order] for k in ks]
-    for _ in range(payloads):
-        out.append(rng.integers(-100, 100, size=n).astype(np.int32))
-    return out
+def _as_dict(lo, hi, ct):
+    return {
+        (int(h) << 32) | int(l): int(c) for l, h, c in zip(lo, hi, ct) if c > 0
+    }
+
+
+def _check(a, b, mode="union_sum"):
+    got = setops.combine_counts(
+        *(jnp.asarray(x) for x in a), *(jnp.asarray(x) for x in b), mode=mode
+    )
+    lo, hi, ct = (np.asarray(x) for x in got[:3])
+    nu = int(got[3])
+    want = setops.combine_dicts(_as_dict(*a), _as_dict(*b), mode)
+    assert nu == len(want)
+    assert _as_dict(lo[:nu], hi[:nu], ct[:nu]) == want
+    keys = (hi[:nu].astype(np.uint64) << np.uint64(32)) | lo[:nu]
+    assert np.all(keys[1:] > keys[:-1])  # live rows ascending, distinct
+    assert not ct[nu:].any()
+    return got
 
 
 @pytest.mark.parametrize("na,nb", [(5, 3), (100, 28), (700, 300)])
-def test_merge_small_fallback(na, nb):
+def test_merge_small(na, nb):
     rng = np.random.default_rng(na * 1000 + nb)
-    _check(_sorted_list(rng, na, 1), _sorted_list(rng, nb, 1), 1)
+    _check(_counted(rng, na), _counted(rng, nb))
 
 
 @pytest.mark.parametrize(
     "na,nb", [(600, 424), (1024, 1024), (5000, 3000), (40000, 30000)]
 )
 def test_merge_single_key(na, nb):
+    # single key word: hi = 0 throughout (k <= 16)
     rng = np.random.default_rng(na + nb)
-    _check(_sorted_list(rng, na, 1), _sorted_list(rng, nb, 1), 1)
+    _check(_counted(rng, na, hi_range=1), _counted(rng, nb, hi_range=1))
 
 
 def test_merge_beyond_one_block():
-    # > TILE elements so the XLA outer stages run too
     rng = np.random.default_rng(7)
-    _check(_sorted_list(rng, 70000, 1), _sorted_list(rng, 70000, 1), 1)
+    _check(_counted(rng, 70000), _counted(rng, 70000))
 
 
 def test_merge_two_key_words():
+    # many hi-word ties: the lo word decides
     rng = np.random.default_rng(11)
     _check(
-        _sorted_list(rng, 3000, 2, hi=4),  # many hi-word ties
-        _sorted_list(rng, 2000, 2, hi=4),
-        2,
+        _counted(rng, 3000, hi_range=4, lo_range=2000),
+        _counted(rng, 2000, hi_range=4, lo_range=2000),
+        "intersect_min",
     )
 
 
 def test_merge_three_key_words():
+    # both words drawn from tiny ranges: almost every key in both lists
     rng = np.random.default_rng(13)
     _check(
-        _sorted_list(rng, 1500, 3, hi=3, payloads=2),
-        _sorted_list(rng, 1700, 3, hi=3, payloads=2),
-        3,
+        _counted(rng, 1500, hi_range=3, lo_range=600),
+        _counted(rng, 1700, hi_range=3, lo_range=600),
+        "union_max",
     )
 
 
@@ -111,41 +93,45 @@ def test_merge_heavy_duplicates():
     # massive cross-list key overlap: the regime setops/accumulator see
     rng = np.random.default_rng(17)
     _check(
-        _sorted_list(rng, 4000, 1, hi=50),
-        _sorted_list(rng, 4000, 1, hi=50),
-        1,
+        _counted(rng, 40, hi_range=1, lo_range=50),
+        _counted(rng, 45, hi_range=1, lo_range=50),
+        "subtract",
     )
 
 
 def test_merge_with_real_sentinels():
-    # dead-sentinel convention: trailing all-ones keys in both inputs
+    # dead rows (ct == 0) under the all-ones sentinel key in both inputs,
+    # beside a LIVE all-ones key (the k=32 all-T k-mer) in one of them
     rng = np.random.default_rng(19)
-    a = _sorted_list(rng, 2000, 1, hi=1 << 20)
-    b = _sorted_list(rng, 1000, 1, hi=1 << 20)
-    a[0][-50:] = SENT
-    b[0][-30:] = SENT
-    _check(a, b, 1)
+    a = [np.concatenate([x, y]) for x, y in zip(
+        _counted(rng, 2000, lo_range=1 << 20),
+        (np.full(50, SENT), np.full(50, SENT), np.zeros(50, np.int32)))]
+    b = [np.concatenate([x, y]) for x, y in zip(
+        _counted(rng, 1000, lo_range=1 << 20),
+        (np.full(31, SENT), np.full(31, SENT), np.zeros(31, np.int32)))]
+    b[2][1000] = 7  # live all-ones key ahead of b's dead rows
+    for mode in ("union_sum", "intersect_min"):
+        _check(a, b, mode)
 
 
 def test_merge_empty_and_lopsided():
     rng = np.random.default_rng(23)
-    _check(_sorted_list(rng, 0, 1), _sorted_list(rng, 3000, 1), 1)
-    _check(_sorted_list(rng, 3000, 1), _sorted_list(rng, 1, 1), 1)
+    _check(_counted(rng, 0), _counted(rng, 3000))
+    _check(_counted(rng, 3000), _counted(rng, 1))
 
 
 def test_merge_pad_values():
+    # compact=False keeps the static length len(A) + len(B): live results
+    # first (ascending), every other row dead
     rng = np.random.default_rng(29)
-    a = _sorted_list(rng, 1000, 1)
-    b = _sorted_list(rng, 500, 1)
-    out = merge_sorted(
-        tuple(jnp.asarray(x) for x in a),
-        tuple(jnp.asarray(x) for x in b),
-        1,
-        pad_val=(1234,),  # outside the random payload range
-        interpret=True,
+    a, b = _counted(rng, 1000), _counted(rng, 500)
+    out = setops.combine_counts(
+        *(jnp.asarray(x) for x in a), *(jnp.asarray(x) for x in b),
+        mode="union_sum", compact=False,
     )
-    k, p = np.asarray(out[0]), np.asarray(out[1])
-    assert k.shape[0] == 2048
-    pad_rows = p == 1234
-    assert pad_rows.sum() == 2048 - 1500
-    assert np.all(k[pad_rows] == SENT)
+    lo, hi, ct = (np.asarray(x) for x in out[:3])
+    assert lo.shape[0] == 1500
+    assert _as_dict(lo, hi, ct) == setops.combine_dicts(
+        _as_dict(*a), _as_dict(*b), "union_sum"
+    )
+    assert int(out[3]) == int((ct > 0).sum())

@@ -682,9 +682,9 @@ def test_minimizer_sketch64_rejects_k32():
 
 
 def test_count_kmers_auto_dispatch_contract(monkeypatch):
-    """The auto/auto_layout dispatch table is pure python on (mode, k,
-    backend) — pin it so an elif reorder can't silently flip a branch
-    (round-5 review: exactly such a reorder shipped this round)."""
+    """The auto/auto_layout dispatch table is pure python on (mode, k) and
+    the same on every platform — pin it so an elif reorder can't silently
+    flip a branch."""
     import jax as _jax
 
     from bitnuc_tpu.ops import kmer as K
@@ -697,24 +697,14 @@ def test_count_kmers_auto_dispatch_contract(monkeypatch):
         out = K.count_kmers_reads(reads_words, lens, k, mode=mode)
         return "runs" if isinstance(out, tuple) else "dense"
 
-    # CPU backend: dense return AND dense engine through MAX_DENSE_K
-    for k in (8, 9, 12):
-        assert shapes("auto", k) == "dense"
-        assert shapes("auto_layout", k) == "dense"
-    assert shapes("auto", 13) == "runs"  # beyond MAX_DENSE_K: runs 4-tuple
-
-    # TPU dispatch decisions (pure python): fake the backend
-    monkeypatch.setattr(_jax, "default_backend", lambda: "tpu")
-    from bitnuc_tpu import config
-
-    # auto stays dense-contract for k <= 12; auto_layout hands 9..12 to runs
-    with config.backend("xla"):  # keep kernels off the fake TPU
-        for k in (8,):
+    for platform in (None, "gpu"):
+        if platform:  # the decision must not read the platform
+            monkeypatch.setattr(_jax, "default_backend", lambda: platform)
+        # dense return AND dense engine through MAX_DENSE_K
+        for k in (8, 9, 12):
             assert shapes("auto", k) == "dense"
             assert shapes("auto_layout", k) == "dense"
-        for k in (9, 10, 12):
-            assert shapes("auto_layout", k) == "runs"
-    # the pipeline boundary: k=9 stays DENSE for job-scale capacity
-    assert K.auto_dense_max_k() == K.MAX_PALLAS_HIST_K
-    monkeypatch.undo()
-    assert K.auto_dense_max_k() == K.MAX_DENSE_K
+        assert shapes("auto", 13) == "runs"  # beyond MAX_DENSE_K: runs
+        assert shapes("auto_layout", 13) == "runs"
+        # the pipeline boundary: dense wherever the histogram fits
+        assert K.auto_dense_max_k() == K.MAX_DENSE_K
